@@ -1,0 +1,3 @@
+"""Trajectory evaluation and g2o I/O."""
+
+from cslam_tpu_torch.evaluation.ate import absolute_trajectory_error  # noqa: F401

@@ -1,0 +1,354 @@
+"""Robust SE(3) pose-graph optimizer: GNC-TLS around Levenberg-Marquardt.
+
+Counterpart of ``cslam_tpu/pgo/solver.py`` (the replacement for the
+reference's GTSAM ``GncOptimizer<GncParams<LevenbergMarquardtParams>>`` at
+``src/back_end/decentralized_pgo.cpp:796-856``), dense normal-equation
+tier only:
+
+- residuals and exact analytic Jacobians batched over edges,
+- the ``[6Np, 6Np]`` normal equations assembled with ``index_put_`` /
+  ``index_add_`` scatter-adds (the JAX package used one-hot matmuls because
+  TPU scatters serialize) and solved by dense Cholesky,
+- Levenberg-Marquardt damping with accept/reject,
+- GNC-TLS outer loop (Yang et al., arXiv:1909.08605) reweighting the edges
+  flagged ``robust`` (loop closures); odometry and priors stay weight 1,
+  with the Geman-McClure de-masking phase and the chordal restart.
+
+The JAX package's ``lax.while_loop`` / ``lax.cond`` become Python loops and
+``if``s on host scalars. Graphs padded above 512 nodes need the PCG tier
+with its segment-rigid coarse correction, which is not ported yet: they
+raise ``NotImplementedError`` (ROADMAP.md item 17).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import torch
+
+from cslam_tpu_torch.ops import cholesky_solve, highest_precision, se3
+from cslam_tpu_torch.pgo.factor_graph import PoseGraphArrays
+
+_DENSE_SOLVE_MAX_NODES = 512  # the dense Cholesky tier's limit
+_DEMASK_IRLS_MAX = 4          # GM de-masking IRLS iteration cap
+
+
+# ---------------------------------------------------------------------------
+# Residuals and linearization
+# ---------------------------------------------------------------------------
+
+
+def edge_residuals(poses: torch.Tensor, g: PoseGraphArrays) -> torch.Tensor:
+    """Whitened residuals of all (padded) edges:
+    ``sqrt_info * Log(Z^-1 Xi^-1 Xj)``, ``[Ne, 6]``."""
+    Xi = poses[g.edge_i]
+    Xj = poses[g.edge_j]
+    r = se3.log(se3.between(g.meas, se3.between(Xi, Xj))) * g.sqrt_info
+    return r * g.edge_valid[:, None]
+
+
+def prior_residuals(poses: torch.Tensor, g: PoseGraphArrays) -> torch.Tensor:
+    """Whitened residuals of all (padded) pose priors: ``[B, 6]``."""
+    r = se3.log(se3.between(g.prior_pose, poses[g.prior_idx]))
+    return r * g.prior_sqrt_info * g.prior_valid[:, None]
+
+
+def cost(poses: torch.Tensor, g: PoseGraphArrays,
+         weights: torch.Tensor) -> torch.Tensor:
+    """0.5 * sum of weighted squared whitened residuals (+ priors)."""
+    r = edge_residuals(poses, g)
+    rp = prior_residuals(poses, g)
+    return 0.5 * (torch.sum(weights[:, None] * r * r) + torch.sum(rp * rp))
+
+
+def _linearize(poses: torch.Tensor, g: PoseGraphArrays):
+    """Batched residuals + exact ANALYTIC Jacobians at the current estimate.
+
+    Returns (r [Ne,6], Ji [Ne,6,6], Jj [Ne,6,6], rp [B,6], Jp [B,6,6]).
+    With right perturbations X -> X Exp(xi) and raw residual
+    ``e = Log(Z^-1 Xi^-1 Xj)``: ``de/dxi_j = Jr_inv(e)`` and
+    ``de/dxi_i = -Jr_inv(e) Ad(Xj^-1 Xi)``, rows scaled by sqrt information.
+    """
+    Xi = poses[g.edge_i]
+    Xj = poses[g.edge_j]
+    E = se3.inverse(g.meas) @ se3.inverse(Xi) @ Xj
+    r_raw = se3.log(E)
+    Jr_inv = se3.se3_jr_inv(r_raw)
+    Jj = g.sqrt_info[:, :, None] * Jr_inv
+    Ad = se3.adjoint(se3.inverse(Xj) @ Xi)
+    Ji = -(Jj @ Ad)
+    r = (r_raw * g.sqrt_info) * g.edge_valid[:, None]
+    Ji = Ji * g.edge_valid[:, None, None]
+    Jj = Jj * g.edge_valid[:, None, None]
+
+    Xp = poses[g.prior_idx]
+    rp_raw = se3.log(se3.inverse(g.prior_pose) @ Xp)
+    Jp = g.prior_sqrt_info[:, :, None] * se3.se3_jr_inv(rp_raw)
+    rp = (rp_raw * g.prior_sqrt_info) * g.prior_valid[:, None]
+    Jp = Jp * g.prior_valid[:, None, None]
+    return r, Ji, Jj, rp, Jp
+
+
+# ---------------------------------------------------------------------------
+# Normal equations (scatter-add assembly)
+# ---------------------------------------------------------------------------
+
+
+def _hessian_blocks(g, Ji, Jj, Jp, weights):
+    """Block-diagonal of H = J^T W J: ``[Np, 6, 6]``."""
+    Np = g.poses.shape[0]
+    w = (weights * g.edge_valid)[:, None, None]
+    D = torch.zeros((Np, 6, 6), dtype=Ji.dtype, device=Ji.device)
+    D.index_add_(0, g.edge_i, Ji.transpose(1, 2) @ Ji * w)
+    D.index_add_(0, g.edge_j, Jj.transpose(1, 2) @ Jj * w)
+    D.index_add_(0, g.prior_idx, Jp.transpose(1, 2) @ Jp)
+    # identity on padded nodes keeps them inert and invertible
+    return D + ((1.0 - g.node_valid)[:, None, None]
+                * torch.eye(6, dtype=Ji.dtype, device=Ji.device))
+
+
+def _assemble_grad(g, Ji, Jj, Jp, rw, rp):
+    """grad = J^T W r: ``[Np, 6]``."""
+    Np = g.poses.shape[0]
+    grad = torch.zeros((Np, 6), dtype=Ji.dtype, device=Ji.device)
+    grad.index_add_(0, g.edge_i, torch.einsum("eij,ei->ej", Ji, rw))
+    grad.index_add_(0, g.edge_j, torch.einsum("eij,ei->ej", Jj, rw))
+    grad.index_add_(0, g.prior_idx, torch.einsum("bij,bi->bj", Jp, rp))
+    return grad * g.node_valid[:, None]
+
+
+def _dense_normal_solve(g, Ji, Jj, weights, lam, diag_h, grad, D_blocks):
+    """Solve (H + lam*diag(H)) delta = -grad by dense Cholesky.
+
+    Off-diagonal blocks ``Ji^T W Jj`` land at (i, j) and their transposes at
+    (j, i); the block diagonal is ``D_blocks`` (edge + prior terms and the
+    padded-node identity) plus the damping.
+    """
+    Np = g.poses.shape[0]
+    dtype, dev = Ji.dtype, Ji.device
+    w3 = (weights * g.edge_valid)[:, None, None]
+    JiT_Jj = Ji.transpose(1, 2) @ Jj * w3
+    H = torch.zeros((Np, Np, 6, 6), dtype=dtype, device=dev)
+    H.index_put_((g.edge_i, g.edge_j), JiT_Jj, accumulate=True)
+    H.index_put_((g.edge_j, g.edge_i), JiT_Jj.transpose(1, 2),
+                 accumulate=True)
+    eye6 = torch.eye(6, dtype=dtype, device=dev)
+    nodes = torch.arange(Np, device=dev)
+    H[nodes, nodes] += D_blocks + lam * diag_h[:, :, None] * eye6[None]
+    Hm = H.permute(0, 2, 1, 3).reshape(Np * 6, Np * 6)
+    delta = cholesky_solve(Hm, -grad.reshape(Np * 6, 1))
+    return delta.reshape(Np, 6)
+
+
+# ---------------------------------------------------------------------------
+# Levenberg-Marquardt
+# ---------------------------------------------------------------------------
+
+
+class LMResult(NamedTuple):
+    poses: torch.Tensor
+    final_cost: torch.Tensor
+    iterations: int
+
+
+@highest_precision
+def lm_optimize(g: PoseGraphArrays, weights: torch.Tensor,
+                max_iters: int = 50, cg_iters: int = 150,
+                init_lambda: float = 1e-4, cg_tol: float = 1e-6,
+                rel_tol: float = 1e-7) -> LMResult:
+    """Levenberg-Marquardt on the dense normal equations.
+
+    ``weights`` are per-edge robust weights (1.0 = plain least squares).
+    ``cg_iters`` and ``cg_tol`` belong to the PCG tier (above 512 nodes) and
+    are accepted for API parity.
+    """
+    if g.poses.shape[0] > _DENSE_SOLVE_MAX_NODES:
+        raise NotImplementedError(
+            f"pose graphs padded to {g.poses.shape[0]} > "
+            f"{_DENSE_SOLVE_MAX_NODES} nodes need the PCG tier with the "
+            "segment-rigid coarse correction, not ported yet "
+            "(ROADMAP.md item 17)")
+    poses = g.poses
+    current_cost = cost(poses, g, weights)
+    lam = torch.tensor(init_lambda, dtype=poses.dtype, device=poses.device)
+    w = weights * g.edge_valid
+    it = 0
+    while it < max_iters:
+        r, Ji, Jj, rp, Jp = _linearize(poses, g)
+        grad = _assemble_grad(g, Ji, Jj, Jp, r * w[:, None], rp)
+        D = _hessian_blocks(g, Ji, Jj, Jp, weights)
+        diag_h = torch.clamp(torch.diagonal(D, dim1=1, dim2=2), min=1e-8)
+        delta = _dense_normal_solve(g, Ji, Jj, weights, lam, diag_h, grad,
+                                    D)
+        delta = delta * g.node_valid[:, None]
+
+        candidate = se3.retract(poses, delta)
+        new_cost = cost(candidate, g, weights)
+        accept = new_cost < current_cost
+        poses = torch.where(accept, candidate, poses)
+        step_small = torch.max(torch.abs(delta)) < 1e-7
+        # converged when the cost stops moving — whether or not the step
+        # was accepted
+        converged = (torch.abs(current_cost - new_cost)
+                     < rel_tol * (current_cost + 1e-12))
+        current_cost = torch.where(accept, new_cost, current_cost)
+        lam = torch.clamp(torch.where(accept, lam * 0.3, lam * 5.0),
+                          1e-9, 1e7)
+        it += 1
+        if bool(step_small | converged):
+            break
+    return LMResult(poses, current_cost, it)
+
+
+# ---------------------------------------------------------------------------
+# GNC-TLS outer loop
+# ---------------------------------------------------------------------------
+
+
+def _edge_chi2(poses: torch.Tensor, g: PoseGraphArrays) -> torch.Tensor:
+    r = edge_residuals(poses, g)
+    return torch.sum(r * r, dim=-1)
+
+
+def _tls_weights(chi2: torch.Tensor, mu, barc_sq: float) -> torch.Tensor:
+    """Closed-form GNC-TLS weight update (arXiv:1909.08605, Prop. 4)."""
+    upper = (mu + 1.0) / mu * barc_sq
+    lower = mu / (mu + 1.0) * barc_sq
+    mid = torch.sqrt(barc_sq * mu * (mu + 1.0)
+                     / torch.clamp(chi2, min=1e-12)) - mu
+    return torch.where(chi2 >= upper, torch.zeros_like(chi2),
+                       torch.where(chi2 <= lower, torch.ones_like(chi2),
+                                   torch.clamp(mid, 0.0, 1.0)))
+
+
+class GncResult(NamedTuple):
+    poses: torch.Tensor
+    weights: torch.Tensor
+    final_cost: torch.Tensor
+    outer_iterations: int
+
+
+def _replace_poses(g: PoseGraphArrays, poses: torch.Tensor):
+    return dataclasses.replace(g, poses=poses)
+
+
+@highest_precision
+def gnc_optimize(g: PoseGraphArrays, max_outer: int = 100,
+                 lm_iters: int = 30, cg_iters: int = 150,
+                 barc_sq: float = 16.81, mu_step: float = 2.0,
+                 graduation_lm_iters: int = 4,
+                 mu0_chi2_cap: float = 50.0) -> GncResult:
+    """Graduated non-convexity (TLS) robust PGO.
+
+    Edges with ``g.robust == 1`` are reweighted; others stay weight 1.
+    ``barc_sq`` defaults to the chi-square(6) 99% quantile. The schedule and
+    its defaults (``mu_step`` 2.0, ``graduation_lm_iters`` 4, the capped
+    ``mu0``) are the JAX package's, validated there.
+
+    Phases: an unweighted LM solve; a Geman-McClure de-masking IRLS (when
+    some robust edge exceeds ``barc_sq``) followed by a weighted chordal
+    restart that keeps whichever solution has the lower robust cost; the
+    TLS graduation with short warm-started LM solves; a final LM polish
+    with the converged weights.
+    """
+    ones = torch.ones(g.edge_i.shape[0], dtype=g.poses.dtype,
+                      device=g.poses.device)
+    poses0 = lm_optimize(g, ones, max_iters=lm_iters, cg_iters=cg_iters,
+                         rel_tol=1e-5).poses
+    chi2 = _edge_chi2(poses0, g)
+    robust_mask = g.robust * g.edge_valid > 0
+
+    c2 = 4.0 * barc_sq
+
+    def gm_weights(chi2_now):
+        return torch.where(robust_mask, c2 / (c2 + chi2_now),
+                           torch.ones_like(chi2_now))
+
+    def suspicious(chi2_now):
+        return robust_mask & (chi2_now > 2.0 * barc_sq)
+
+    needs_irls = bool(torch.any(robust_mask & (chi2 > barc_sq)))
+    if needs_irls:
+        # de-masking IRLS: soft GM weights unmask gross outliers that the
+        # unweighted init accommodated; stops when the suspicious set is
+        # stable. cut_prev starts as the complement of cut0, so the first
+        # GM solve always runs.
+        cut_cur = suspicious(chi2)
+        cut_prev = ~cut_cur
+        i = 0
+        while i < _DEMASK_IRLS_MAX and bool(torch.any(cut_prev != cut_cur)):
+            chi2_i = _edge_chi2(poses0, g)
+            poses0 = lm_optimize(_replace_poses(g, poses0),
+                                 gm_weights(chi2_i), max_iters=lm_iters,
+                                 cg_iters=cg_iters, rel_tol=1e-5).poses
+            cut_prev, cut_cur = cut_cur, suspicious(_edge_chi2(poses0, g))
+            i += 1
+
+        # chordal restart, robustified by the de-masked GM weights; keep
+        # whichever solution has lower robust cost
+        from cslam_tpu_torch.pgo.chordal import chordal_initialize
+        w_gm = gm_weights(_edge_chi2(poses0, g))
+        poses_c = chordal_initialize(g, w_gm)
+        poses_c = lm_optimize(_replace_poses(g, poses_c), w_gm,
+                              max_iters=lm_iters, cg_iters=cg_iters,
+                              rel_tol=1e-5).poses
+        if bool(cost(poses_c, g, w_gm) < cost(poses0, g, w_gm)):
+            poses0 = poses_c
+
+    chi2 = _edge_chi2(poses0, g)
+    masked_chi2 = torch.where(robust_mask, chi2, torch.zeros_like(chi2))
+    max_chi2 = torch.clamp(torch.max(masked_chi2), max=mu0_chi2_cap * barc_sq)
+    # TLS mu init (GTSAM GncOptimizer::initializeMu): barc^2/(2 r_max^2 - barc^2)
+    mu = torch.where(max_chi2 > barc_sq,
+                     barc_sq / (2.0 * max_chi2 - barc_sq),
+                     torch.full_like(max_chi2, 1e6))
+    mu = torch.clamp(mu, min=1e-6)
+    done = bool(torch.max(masked_chi2) <= barc_sq)  # all inliers
+
+    poses, weights = poses0, ones
+    iters = 0
+    while iters < max_outer and not done:
+        w_prev = weights
+        w_tls = _tls_weights(_edge_chi2(poses, g), mu, barc_sq)
+        weights = torch.where(g.robust > 0, w_tls, torch.ones_like(w_tls))
+        poses = lm_optimize(_replace_poses(g, poses), weights,
+                            max_iters=graduation_lm_iters,
+                            cg_iters=cg_iters, rel_tol=1e-5).poses
+        # stop when weights are binary OR have stopped moving (GTSAM's
+        # weight-convergence criterion for TLS)
+        binary = torch.all((weights < 1e-3) | (weights > 1.0 - 1e-3))
+        stable = torch.max(torch.abs(weights - w_prev)) < 1e-3
+        mu = mu * mu_step
+        iters += 1
+        done = bool(binary | stable)
+    res_f = lm_optimize(_replace_poses(g, poses), weights, max_iters=lm_iters,
+                        cg_iters=cg_iters)
+    return GncResult(res_f.poses, weights, cost(res_f.poses, g, weights),
+                     iters)
+
+
+@highest_precision
+def gnc_reoptimize(g: PoseGraphArrays, warm_weights: torch.Tensor,
+                   lm_iters: int = 30, cg_iters: int = 150,
+                   barc_sq: float = 16.81) -> GncResult:
+    """Incremental robust re-solve carrying the previous round's TLS
+    weights: gate robust edges by their residual at the warm init (TLS at
+    mu = 1), solve weighted LM, refresh the weights with the hard TLS rule,
+    and polish once."""
+    chi2_init = _edge_chi2(g.poses, g)
+    init_gate = _tls_weights(chi2_init, 1.0, barc_sq)
+    warm_weights = torch.as_tensor(warm_weights, dtype=g.poses.dtype,
+                                   device=g.poses.device)
+    w0 = torch.where(g.robust > 0, torch.minimum(warm_weights, init_gate),
+                     torch.ones_like(init_gate))
+    res1 = lm_optimize(g, w0, max_iters=lm_iters, cg_iters=cg_iters,
+                       rel_tol=1e-6)
+    chi2 = _edge_chi2(res1.poses, g)
+    w1 = torch.where(g.robust > 0, (chi2 < barc_sq).to(g.poses.dtype),
+                     torch.ones_like(chi2))
+    res2 = lm_optimize(_replace_poses(g, res1.poses), w1, max_iters=lm_iters,
+                       cg_iters=cg_iters)
+    chi2 = _edge_chi2(res2.poses, g)
+    w2 = torch.where(g.robust > 0, (chi2 < barc_sq).to(g.poses.dtype),
+                     torch.ones_like(chi2))
+    return GncResult(res2.poses, w2, cost(res2.poses, g, w2), 2)

@@ -1,0 +1,13 @@
+"""Host-side runtime: the thin messaging/orchestration plane.
+
+The reference runs on ROS 2 pub/sub (DDS) with namespaced topics
+(``/r{i}/cslam/...``), heartbeat liveness, windowed-resend gossip, and an
+elected-optimizer PGO state machine. Here that plane is an explicit,
+dependency-free runtime: a typed in-process message bus with the same topic
+semantics (swappable for a networked transport), virtual or wall clocks,
+and node objects (front end / detection / back end) that mirror the
+reference processes. Device code never blocks on this plane.
+"""
+
+from cslam_tpu_torch.runtime.bus import MessageBus, RobotContext  # noqa: F401
+from cslam_tpu_torch.runtime.clock import VirtualClock, WallClock  # noqa: F401

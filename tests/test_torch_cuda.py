@@ -1,0 +1,42 @@
+"""Tests that need the CUDA device: the hand-written kernels against their
+plain PyTorch versions. They skip on a machine without a GPU.
+
+This file imports neither JAX nor the JAX package, so it also runs where
+only PyTorch is installed; there the JAX-importing ``tests/conftest.py``
+must be left out:
+
+    python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from cslam_tpu_torch.ops import nns
+
+
+def _unit(x):
+    return (x / np.linalg.norm(x, axis=1, keepdims=True)).astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bank_scan_matches_plain_version_on_card(dtype):
+    """Bit for bit (same summation order and roundings): ties across bank
+    splits, n < k, k = 128, a batch that is not a multiple of 32."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    rng = np.random.default_rng(1)
+    bank = torch.from_numpy(_unit(rng.standard_normal((20000, 64)))).cuda()
+    bank[9000] = bank[10]
+    q = torch.from_numpy(rng.standard_normal((70, 64)).astype(
+        np.float32)).cuda()
+    q[4] = bank[10]
+    b = bank.to(dtype)
+    for n, k in ((19000, 10), (3, 8), (20000, 128)):
+        before = nns.launches
+        gv, gi = nns.cosine_topk_scan(b, n, q, k)
+        assert nns.launches == before + 1
+        rv, ri = nns.cosine_topk_scan_ref(b, n, q, k)
+        assert torch.equal(gi, ri)
+        assert torch.equal(gv, rv)
+    assert gi[4, :2].tolist() == [10, 9000]

@@ -1,0 +1,94 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, and its
+entry points refuse to fall back to the CPU when no GPU is there."""
+import pathlib
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+_FORBIDDEN = re.compile(
+    r"^\s*(import jax|from jax|import cslam_tpu\b(?!_)|from cslam_tpu[ .])",
+    re.MULTILINE)
+
+
+def test_package_imports_without_jax():
+    """Every port module imports in a fresh interpreter where ``jax`` and
+    ``cslam_tpu`` cannot be imported at all."""
+    code = (
+        "import sys, importlib, pkgutil\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['cslam_tpu'] = None\n"
+        "import cslam_tpu_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(\n"
+        "    cslam_tpu_torch.__path__, 'cslam_tpu_torch.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "print(len(names))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 30
+
+
+def test_source_scan_finds_no_jax_import():
+    files = sorted((REPO / "cslam_tpu_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    offenders = [f"{p.relative_to(REPO)}: {m.group(0).strip()}"
+                 for p in files for m in _FORBIDDEN.finditer(p.read_text())]
+    assert offenders == []
+    assert len(files) > 30
+
+
+def _entry_points(params):
+    from cslam_tpu_torch import resolve_device
+    from cslam_tpu_torch.matching.nns_bank import DescriptorBank
+    from cslam_tpu_torch.matching.sparse_matching import \
+        LoopClosureSparseMatching
+    from cslam_tpu_torch.pgo import FactorGraph
+    from cslam_tpu_torch.runtime.simulator import (SwarmSimulator,
+                                                   SyntheticWorld,
+                                                   circle_trajectory)
+    from cslam_tpu_torch.selection.mac import MAC
+    from cslam_tpu_torch.types import Edge
+
+    graph = FactorGraph()
+    graph.add_variable((0, 0), np.eye(4))
+    world = SyntheticWorld(nb_places=4)
+    return {
+        "resolve_device": lambda: resolve_device(),
+        "DescriptorBank": lambda: DescriptorBank(dim=8),
+        "LoopClosureSparseMatching": lambda: LoopClosureSparseMatching(params),
+        "MAC": lambda: MAC([Edge(0, 1, 1.0)], [Edge(1, 2, 1.0)], 3),
+        "FactorGraph.to_arrays": graph.to_arrays,
+        "SwarmSimulator": lambda: SwarmSimulator(
+            1, world, [circle_trajectory(2, 1.0, 4)]),
+    }
+
+
+@pytest.mark.parametrize("name", [
+    "resolve_device", "DescriptorBank", "LoopClosureSparseMatching", "MAC",
+    "FactorGraph.to_arrays", "SwarmSimulator"])
+def test_default_device_without_gpu_raises(monkeypatch, name):
+    from helpers import matching_params
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no GPU is available"):
+        _entry_points(matching_params())[name]()
+
+
+def test_cpu_tensors_take_the_plain_version():
+    """The wrapper picks the plain version only because the tensor lies on
+    the CPU, and never counts that as a kernel launch."""
+    from cslam_tpu_torch.ops import nns
+    before = nns.launches
+    bank = torch.nn.functional.normalize(torch.randn(40, 8), dim=1)
+    q = torch.randn(3, 8)
+    got = nns.cosine_topk_scan(bank, 33, q, 4)
+    ref = nns.cosine_topk_scan_ref(bank, 33, q, 4)
+    assert torch.equal(got[1], ref[1]) and torch.equal(got[0], ref[0])
+    assert nns.launches == before
+    with pytest.raises(ValueError, match="no bank scan"):
+        nns.cosine_topk_scan(bank.to("meta"), 33, q.to("meta"), 4)
