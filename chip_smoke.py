@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Quickest proof that the PyTorch/CUDA port runs its main path on the GPU.
 
-    python3 chip_smoke.py            # both phases, one CUDA device
+    python3 chip_smoke.py                    # every phase, one CUDA device
+    python3 chip_smoke.py --phases frontend  # one phase
 
-Builds the hand-written kernels from the sources in the checkout, then runs:
+Builds the hand-written kernels from the sources in the checkout (one
+``nvcc`` per source, all at once), then runs:
 
 * phase ``bank_scan`` — the bank search at the size its users run it
   (131072 x 64 bank, 100,000 seeded unit rows, batch 512, k = 10) through
@@ -15,7 +17,21 @@ Builds the hand-written kernels from the sources in the checkout, then runs:
 * phase ``swarm`` — the port's ``SwarmSimulator`` on CUDA with 4 robots x
   120 keyframes (480 poses, the largest swarm on the dense MAC and PGO
   tiers), plus a two-robot run on CUDA held against the same run on the CPU
-  (the plain versions).
+  (the plain versions);
+* phase ``frontend`` — the visual front end's flagship step: CosPlace
+  ResNet18 + GeM (fc 64, the seeded golden weights) from
+  ``make_global_descriptor`` embeds seeded 480 x 640 keyframes (crop 376 ->
+  224) through ``compute_embedding_begin``/``finish`` (B = 1) and
+  ``compute_embeddings`` (B = 32), held against the same model on the CPU
+  with TF32 off; then ``entry.frontend_step`` (the twin of
+  ``__graft_entry__.entry``) at B = 1 and B = 32 against a 131072 x 64 bank
+  of 100,000 non-unit rows, k = 8, its search the tile-scan kernel K2, held
+  against ``ops.topk.cosine_topk``; then K2 against its plain version (main
+  shape B = 512, k = 10, ties across splits, n < k, B = 700, a bf16 bank:
+  exact) and K2's times at B = 1 and B = 512 beside its plain version,
+  ``torch.topk`` of ``matmul`` (the library yardstick) and its bound;
+  last, ``torch.profiler`` device times of the step and of K2 (the
+  profiler may slow what runs after it, so it runs after every timing).
 
 Every kernel's launch counter is set to 0 just before each main-path run and
 read just after; a kernel that did not launch fails the run. Prints the
@@ -57,6 +73,63 @@ def _time_ms(fn, iters: int, warmup: int = 2) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def _time_cold_ms(fn, iters: int, flush, warmup: int = 2) -> float:
+    """Mean CUDA-event time of ``fn`` with the L2 cache flushed (``flush``
+    writes a buffer larger than it) before each call, as a caller that
+    searches once per keyframe finds it."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    pairs = []
+    for _ in range(iters):
+        flush()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        pairs.append((start, stop))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / iters
+
+
+def _device_profile(fn, iters: int = 20) -> dict:
+    """Per call: the host wall time, the device time of every CUDA kernel
+    ``fn`` launches and of the tile scan's two kernels (``torch.profiler``),
+    and the device's idle share of the wall; device times are ``None``
+    where the profiler saw none. Run it after every timing: its tracing may
+    slow what runs after it."""
+    import warnings
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / iters
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA]
+
+    def ms(pick):
+        return sum(e.device_time_total for e in kernels
+                   if pick(e.key)) / 1e3 / iters
+    device_ms = ms(lambda key: True)
+    if device_ms <= 0:
+        return {"wall_ms": wall_ms, "device_ms": None, "idle_share": None}
+    return {"wall_ms": wall_ms, "device_ms": device_ms,
+            "scan_kernel_ms": ms(lambda key: "scan_kernel" in key),
+            "merge_kernel_ms": ms(lambda key: "merge_kernel" in key),
+            "idle_share": max(0.0, 1.0 - device_ms / wall_ms)}
 
 
 def _compare(name, got, ref, failures) -> float:
@@ -158,6 +231,227 @@ def phase_bank_scan(results, failures):
     results["bank_scan"] = out
 
 
+def _frontend_bank(rng, n):
+    """A 131072 x 64 bank of ``n`` seeded non-unit rows and their inverse
+    norms (padding rows zero), on the card."""
+    import numpy as np
+    import torch
+    N, D = 131072, 64
+    rows = (rng.standard_normal((n, D))
+            * rng.uniform(0.5, 2.0, (n, 1))).astype(np.float32)
+    bank = torch.zeros((N, D), dtype=torch.float32, device="cuda")
+    bank[:n] = torch.from_numpy(rows).cuda()
+    inv = torch.zeros(N, dtype=torch.float32, device="cuda")
+    inv[:n] = 1.0 / bank[:n].norm(dim=1)
+    return bank, inv
+
+
+def _tile_scan_checks(bank, inv, n, rng, failures) -> float:
+    """K2 against its plain version on the card: exact indices and values
+    (max_abs_err 0), tie order across splits, the (-inf, 0) tail."""
+    import numpy as np
+    import torch
+
+    from cslam_tpu_torch.ops import nns
+    D, k = bank.shape[1], nns.KERNEL_K
+    q = torch.from_numpy(rng.standard_normal((512, D)).astype(
+        np.float32)).cuda()
+    errs = []
+
+    def check(name, b, inv_, n_, q_):
+        got = nns.cosine_topk_fused(b, inv_, n_, q_, k)
+        err = _compare(f"tile_scan {name}", got,
+                       nns.cosine_topk_fused_ref(b, inv_, n_, q_, k),
+                       failures)
+        if err != 0.0:
+            failures.append(f"tile_scan {name}: max_abs_err {err} != 0")
+        errs.append(err)
+        return got
+
+    check("main shape (B=512, k=10)", bank, inv, n, q)
+    tie, tie_inv = bank.clone(), inv.clone()
+    for r in (300, 50000, 99999):
+        tie[r], tie_inv[r] = tie[100], tie_inv[100]
+    q2 = q[:8].clone()
+    q2[3] = tie[100]
+    got = check("tie case", tie, tie_inv, n, q2)
+    if got[1][3, :4].tolist() != [100, 300, 50000, 99999]:
+        failures.append(f"tile_scan tie order {got[1][3, :4].tolist()}")
+    got = check("n < k case (n=5, k=10)", bank, inv, 5, q)
+    if not (bool(got[1][:, 5:].eq(0).all())
+            and bool(got[0][:, 5:].isneginf().all())):
+        failures.append("tile_scan n < k: tail is not (-inf, 0)")
+    q700 = torch.from_numpy(rng.standard_normal((700, D)).astype(
+        np.float32)).cuda()
+    check("B = 700 case", bank, inv, n, q700)
+    check("bf16 bank", bank.to(torch.bfloat16), inv, n, q)
+    return max(errs)
+
+
+def _tile_scan_times(bank, inv, n, q, k) -> dict:
+    """K2, its plain version and the library pair at one shape, L2 flushed
+    before each call, beside the bound for this run's inputs."""
+    import torch
+
+    from cslam_tpu_torch.ops import nns
+    B, D = q.shape
+    rows, inv_n = bank[:n], inv[:n]
+    scratch = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    flush = scratch.zero_                    # 256 MB > the 50 MB L2
+    flops = 2.0 * B * n * D + B * n          # dot products, x inv_norms
+    nbytes = n * D * 4 + n * 4 + B * D * 4 + B * k * 8
+    t_flops, t_bytes = flops / _PEAK_FLOPS["float32"], nbytes / _PEAK_BYTES
+    return {
+        "B": B, "k": k,
+        "ms": _time_cold_ms(
+            lambda: nns.cosine_topk_fused(bank, inv, n, q, k), 20, flush),
+        "plain_ms": _time_cold_ms(
+            lambda: nns.cosine_topk_fused_ref(bank, inv, n, q, k), 3, flush,
+            warmup=1),
+        "library_ms": _time_cold_ms(
+            lambda: torch.topk((q @ rows.T) * inv_n, k, dim=1), 20, flush),
+        "bound_ms": max(t_flops, t_bytes) * 1e3,
+        "bound_by": "operations" if t_flops >= t_bytes else "bytes",
+        "flops": flops, "bytes": nbytes}
+
+
+def phase_frontend(results, failures):
+    import numpy as np
+    import torch
+
+    from cslam_tpu_torch.entry import entry, frontend_step
+    from cslam_tpu_torch.models import make_global_descriptor, preprocess
+    from cslam_tpu_torch.ops import highest_precision, nns
+    from cslam_tpu_torch.ops.topk import cosine_topk
+
+    params = {"frontend.global_descriptor_technique": "cosplace",
+              "frontend.nn_checkpoint": "random",  # seeded golden weights
+              "frontend.cosplace.backbone": "resnet18",
+              "frontend.cosplace.descriptor_dim": 64,
+              "frontend.image_crop_size": 376, "robot_id": 0}
+    model = make_global_descriptor(params, device="cuda")
+    rng = np.random.default_rng(0)
+    frames = rng.integers(0, 256, (32, 480, 640, 3), dtype=np.uint8)
+    out = {}
+
+    # descriptors, B = 1 through the runtime's begin/finish and B = 32
+    def embed_one(i):
+        return model.compute_embedding_finish(
+            model.compute_embedding_begin(frames[i]))
+    embed_one(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one = [embed_one(i) for i in range(len(frames))]
+    out["embed_ms_per_image_b1"] = (time.perf_counter() - t0) * 1e3 / 32
+    model.compute_embeddings(frames)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        batch = model.compute_embeddings(frames)
+    out["embed_ms_per_image_b32"] = (time.perf_counter() - t0) * 1e3 / 160
+    if not (batch.shape == (32, 64) and np.isfinite(batch).all()
+            and np.allclose(np.linalg.norm(batch, axis=1), 1.0, atol=1e-4)):
+        failures.append(f"frontend: bad descriptors {batch.shape}")
+    out["b1_vs_b32_min_cosine"] = float(np.min(np.sum(
+        np.stack(one) * batch, axis=1)))
+
+    # the same model on the CPU (the plain convolutions), TF32 off on the card
+    want = make_global_descriptor(params, device="cpu").compute_embeddings(
+        frames[:4])
+    got = highest_precision(model.compute_embeddings)(frames[:4])
+    cos = np.sum(got * want, axis=1) / (np.linalg.norm(got, axis=1)
+                                        * np.linalg.norm(want, axis=1))
+    out["cuda_vs_cpu_min_cosine"] = float(cos.min())
+    got = model.compute_embeddings(frames[:4])   # default flags (cuDNN TF32)
+    out["cuda_tf32_default_vs_cpu_min_cosine"] = float(np.min(
+        np.sum(got * want, axis=1)))
+    if not cos.min() >= 0.9999:
+        failures.append(f"frontend: CUDA vs CPU descriptor cosine "
+                        f"{cos.min()} < 0.9999")
+    netvlad = {**params, "frontend.global_descriptor_technique": "netvlad"}
+    want = make_global_descriptor(netvlad, device="cpu").compute_embeddings(
+        frames[:2])
+    got = highest_precision(make_global_descriptor(
+        netvlad, device="cuda").compute_embeddings)(frames[:2])
+    out["netvlad_cuda_vs_cpu_min_cosine"] = float(np.min(np.sum(
+        got * want, axis=1)))
+    if not (got.shape == (2, 128)
+            and out["netvlad_cuda_vs_cpu_min_cosine"] >= 0.9999):
+        failures.append(f"frontend: NetVLAD CUDA vs CPU {got.shape}, "
+                        f"cosine {out['netvlad_cuda_vs_cpu_min_cosine']}")
+
+    # the entry twin at its own example shapes, on the default device
+    fn, args = entry()
+    desc, sims, idx = fn(*args)
+    if not (desc.is_cuda and idx.shape == (1, 8)
+            and bool(torch.isfinite(sims).all())):
+        failures.append("frontend: entry() did not run on the card")
+
+    # frontend_step at full width: the main path
+    n = 100000
+    bank, inv = _frontend_bank(rng, n)
+    net = model.model
+    launches = {"tile_scan": 0, "bank_scan": 0}
+    steps = {}
+    for B in (1, 32):
+        images = preprocess.preprocess(frames[:B], 376, torch.device("cuda"))
+        torch.cuda.synchronize()
+        nns.tile_scan_launches = nns.launches = 0
+        desc, sims, idx = frontend_step(net, images, bank, inv, n, 8)
+        torch.cuda.synchronize()
+        got_launches = nns.tile_scan_launches
+        launches["tile_scan"] += got_launches
+        launches["bank_scan"] += nns.launches
+        print(f"  frontend_step B={B} (bank 131072x64, n={n}, k=8): "
+              f"{got_launches} tile-scan launch(es)")
+        if got_launches < 1:
+            failures.append(f"frontend_step B={B}: K2 not launched")
+        ref_v, ref_i = cosine_topk(bank, inv, n, desc, 8)
+        if not torch.equal(idx, ref_i):
+            failures.append(f"frontend_step B={B}: indices differ from "
+                            "cosine_topk")
+        err = float((sims - ref_v).abs().max())
+        out[f"step_b{B}_vs_cosine_topk_max_abs_err"] = err
+        if not err <= _VALUE_TOL:
+            failures.append(f"frontend_step B={B}: values differ from "
+                            f"cosine_topk by {err}")
+        t0 = time.perf_counter()
+        for _ in range(10):
+            frontend_step(net, images, bank, inv, n, 8)
+        torch.cuda.synchronize()
+        out[f"step_b{B}_ms"] = (time.perf_counter() - t0) * 1e3 / 10
+        out[f"search_b{B}_ms"] = _time_ms(
+            lambda: nns.cosine_topk_fused(bank, inv, n, desc, 8), 20)
+        steps[B] = images
+    out["launches_main_path"] = launches
+    print("  " + json.dumps(out))
+
+    out["tile_scan_max_abs_err"] = _tile_scan_checks(bank, inv, n, rng,
+                                                     failures)
+    queries = {}
+    for B, k in ((1, 8), (512, 10)):
+        queries[B] = torch.from_numpy(rng.standard_normal(
+            (B, bank.shape[1])).astype(np.float32)).cuda()
+        timing = _tile_scan_times(bank, inv, n, queries[B], k)
+        out[f"tile_scan_b{B}"] = timing
+        print(f"  tile_scan B={B} k={k}: " + json.dumps(timing))
+
+    # device-time breakdowns last: the profiler may slow what runs after it
+    for B, images in steps.items():
+        out[f"step_b{B}_profile"] = _device_profile(
+            lambda: frontend_step(net, images, bank, inv, n, 8), 10)
+        print(f"  frontend_step B={B} profile: "
+              + json.dumps(out[f"step_b{B}_profile"]))
+    for (B, q), k in zip(queries.items(), (8, 10)):
+        timing = out[f"tile_scan_b{B}"]
+        timing["profile"] = _device_profile(
+            lambda: nns.cosine_topk_fused(bank, inv, n, q, k))
+        timing["library_profile"] = _device_profile(
+            lambda: torch.topk((q @ bank[:n].T) * inv[:n], k, dim=1))
+        print(f"  tile_scan B={B} profile: " + json.dumps(timing["profile"])
+              + " library: " + json.dumps(timing["library_profile"]))
+    results["frontend"] = out
+
+
 def _two_robot_sim(device, nb_keyframes=30):
     from cslam_tpu_torch.runtime.simulator import (SwarmSimulator,
                                                    SyntheticWorld,
@@ -247,8 +541,9 @@ def phase_swarm(results, failures, robots=4, keyframes=120):
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phases", default="bank_scan,swarm",
-                        help="comma-separated subset of bank_scan,swarm")
+    parser.add_argument("--phases", default="bank_scan,swarm,frontend",
+                        help="comma-separated subset of "
+                             "bank_scan,swarm,frontend")
     args = parser.parse_args()
     phases = args.phases.split(",")
 
@@ -265,8 +560,9 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
     t0 = time.perf_counter()
-    lib = nns.build()
-    print(f"built {lib.name} in {time.perf_counter() - t0:.1f} s")
+    libs = nns.build()
+    print(f"built {', '.join(p.name for p in libs.values())} in "
+          f"{time.perf_counter() - t0:.1f} s")
     for ptxas in sorted(nns.BUILD_DIR.glob("*.ptxas.txt")):
         print(ptxas.read_text().strip())
 
@@ -274,8 +570,8 @@ def main() -> int:
     for phase in phases:
         print(f"phase {phase}")
         try:
-            {"bank_scan": phase_bank_scan, "swarm": phase_swarm}[phase](
-                results, failures)
+            {"bank_scan": phase_bank_scan, "frontend": phase_frontend,
+             "swarm": phase_swarm}[phase](results, failures)
         except Exception as exc:  # noqa: BLE001 - report, then fail the run
             import traceback
             traceback.print_exc()
@@ -296,7 +592,19 @@ def main() -> int:
         "library_ms": f32.get("library_ms"),
         "variants": {"bfloat16": results.get("bank_scan", {}).get(
             "bfloat16")}}
-    print(json.dumps({"kernels": [kernel]}))
+    front = results.get("frontend", {})
+    b1 = front.get("tile_scan_b1", {})   # the frontend step's shape
+    tile = {
+        "name": "tile_scan", "route": "cuda",
+        "source": "cslam_tpu_torch/csrc/tile_scan.cu",
+        "replaces": "cslam_tpu/ops/nns_pallas.py:34",
+        "launches": front.get("launches_main_path", {}).get("tile_scan", 0),
+        "max_abs_err": front.get("tile_scan_max_abs_err"),
+        "ms": b1.get("ms"), "plain_ms": b1.get("plain_ms"),
+        "bound_ms": b1.get("bound_ms"), "bound_by": b1.get("bound_by"),
+        "library_ms": b1.get("library_ms"),
+        "variants": {"B512_k10": front.get("tile_scan_b512")}}
+    print(json.dumps({"kernels": [kernel, tile]}))
     if failures:
         for f in failures:
             print(f"FAIL {f}", file=sys.stderr)

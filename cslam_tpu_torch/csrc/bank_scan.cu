@@ -12,15 +12,11 @@
 //
 // Design (simple and exact by construction; speed is later work):
 //   * Kernel 1, grid (bank split s, query block of QB=32 queries), 256
-//     threads. The block walks its split in tiles of 256 rows. The tile is
-//     loaded coalesced into shared memory (padded row stride D+1, so thread
-//     t reading row t is bank-conflict free); thread t computes the 32 dot
-//     products of row t with the block's queries on the FP32 cores, the
-//     queries read as float4 broadcasts from shared memory. The products
-//     and sums are rounded separately (__fmul_rn / __fadd_rn, accumulated
-//     over d = 0..D-1 from 0): the plain version's elementwise multiply and
-//     add round the same way, so kernel and plain version agree bit for bit
-//     and the tie order is decided on identical values.
+//     threads. The block walks its split in tiles of 256 rows; thread t
+//     computes the 32 dot products of row t with the block's queries on the
+//     FP32 cores, rounded as the plain version rounds them (scan_tile.cuh,
+//     shared with K2), so kernel and plain version agree bit for bit and the
+//     tie order is decided on identical values.
 //   * Each query keeps an exact sorted top-k list in shared memory. After a
 //     tile, one warp per query filters the tile's 256 values against the
 //     list's k-th value and inserts the survivors one by one (warp-parallel
@@ -36,32 +32,14 @@
 // floor is 0.098 ms of arithmetic vs 0.008 ms of memory, so the FP32 rate
 // bounds it. Unfused multiply and add halve the attainable FP32 rate (the
 // price of bit-exact agreement with the plain version).
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <math_constants.h>
 #include <climits>
 
+#include "scan_tile.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;   // threads per block == rows per tile
-constexpr int kQB = 32;         // queries per block
-constexpr int kWarps = kThreads / 32;
-constexpr unsigned kFull = 0xffffffffu;
-
-// floats of the tile buffer: the [kThreads][D+1] bank tile, reused for the
-// [kQB][kThreads] similarities
-__host__ __device__ __forceinline__ int tile_floats(int D) {
-  return kThreads * (D + 1 > kQB ? D + 1 : kQB);
-}
-
-__device__ __forceinline__ bool better(float av, int ai, float bv, int bi) {
-  return av > bv || (av == bv && ai < bi);
-}
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
+using namespace scan;
 
 // Insert candidate (cv, ci) into the sorted list (lv, li) of length *len
 // (capacity k). Called by all 32 lanes of one warp.
@@ -97,9 +75,8 @@ scan_kernel(const T* __restrict__ bank, int n, int D,
             const float* __restrict__ queries, int B, int k, int split_rows,
             float* __restrict__ part_v, int* __restrict__ part_i) {
   extern __shared__ __align__(16) float smem[];
-  const int Dp = D + 1;
   float* qsT = smem;                           // [D][kQB] queries, transposed
-  float* tile = qsT + D * kQB;                 // [kThreads][Dp]; reused as sims [kQB][kThreads]
+  float* tile = qsT + D * kQB;                 // [kThreads][D+1]; reused as sims [kQB][kThreads]
   float* lv = tile + tile_floats(D);           // [kQB][k]
   int* li = reinterpret_cast<int*>(lv + kQB * k);  // [kQB][k]
   int* llen = li + kQB * k;                    // [kQB]
@@ -112,39 +89,17 @@ scan_kernel(const T* __restrict__ bank, int n, int D,
   const int row_begin = s * split_rows;
   const int row_end = min(n, row_begin + split_rows);
 
-  for (int e = t; e < D * kQB; e += kThreads) {
-    const int q = e / D, d = e % D;
-    qsT[d * kQB + q] = (q0 + q < B) ? queries[(size_t)(q0 + q) * D + d] : 0.f;
-  }
+  load_queries(qsT, queries, q0, B, D, t);
   if (t < kQB) llen[t] = 0;
   __syncthreads();
 
   for (int base = row_begin; base < row_end; base += kThreads) {
-    // coalesced tile load: rows [base, base + kThreads) are contiguous
     const int rows = min(kThreads, row_end - base);
-    const size_t off = (size_t)base * D;
-    for (int e = t; e < kThreads * D; e += kThreads) {
-      const int r = e / D, d = e % D;
-      tile[r * Dp + d] = (r < rows) ? to_float(bank[off + e]) : 0.f;
-    }
+    load_tile(tile, bank, base, rows, D, t);
     __syncthreads();
 
     float acc[kQB];
-#pragma unroll
-    for (int q = 0; q < kQB; ++q) acc[q] = 0.f;
-    const float* my_row = tile + t * Dp;
-    const float4* q4 = reinterpret_cast<const float4*>(qsT);
-    for (int d = 0; d < D; ++d) {
-      const float x = my_row[d];
-#pragma unroll
-      for (int g = 0; g < kQB / 4; ++g) {
-        const float4 qv = q4[d * (kQB / 4) + g];
-        acc[4 * g + 0] = __fadd_rn(acc[4 * g + 0], __fmul_rn(qv.x, x));
-        acc[4 * g + 1] = __fadd_rn(acc[4 * g + 1], __fmul_rn(qv.y, x));
-        acc[4 * g + 2] = __fadd_rn(acc[4 * g + 2], __fmul_rn(qv.z, x));
-        acc[4 * g + 3] = __fadd_rn(acc[4 * g + 3], __fmul_rn(qv.w, x));
-      }
-    }
+    tile_dots(acc, tile, qsT, D, t);
     __syncthreads();  // every thread is done reading the tile
     float* sims = tile;
 #pragma unroll

@@ -2,19 +2,29 @@
 
 Counterpart of ``cslam_tpu/models/__init__.py``: the factory mirrors the
 reference's technique selection
-(``cslam/global_descriptor_loop_closure_detection.py:42-60``). The models
-themselves (CosPlace, NetVLAD, ScanContext) are not ported yet (ROADMAP.md
-item 10, the VPR models): asking for one raises. The simulator passes its
-own descriptor model and never calls this factory.
+(``cslam/global_descriptor_loop_closure_detection.py:42-60``). CosPlace and
+NetVLAD are ported; ScanContext (the lidar descriptor) is not yet
+(ROADMAP.md item 11) and asking for it raises.
 """
 from __future__ import annotations
 
-def make_global_descriptor(params: dict):
-    """Instantiate the configured global-descriptor model (not ported yet
-    for any technique; see the module docstring)."""
+
+def make_global_descriptor(params: dict, device=None):
+    """Instantiate the configured global-descriptor model on ``device``
+    (CUDA unless the caller asks for another).
+
+    Returns an object with ``compute_embedding(keyframe) -> np.ndarray`` —
+    the duck-typed interface shared by all techniques (reference
+    ``netvlad.py:212``, ``cosplace.py:81``, ``scancontext.py:14``).
+    """
     technique = params.get("frontend.global_descriptor_technique",
                            "cosplace").lower()
-    raise NotImplementedError(
-        f"global-descriptor model {technique!r} is not ported yet "
-        "(ROADMAP.md item 10, the VPR models); pass a model object with "
-        "compute_embedding() instead")
+    if technique == "netvlad":
+        from cslam_tpu_torch.models.netvlad import NetVLAD
+        return NetVLAD(params, device=device)
+    if technique == "scancontext":
+        raise NotImplementedError(
+            "global-descriptor model 'scancontext' is not ported yet "
+            "(ROADMAP.md item 11, the lidar path)")
+    from cslam_tpu_torch.models.cosplace import CosPlace
+    return CosPlace(params, device=device)

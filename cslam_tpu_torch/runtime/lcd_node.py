@@ -61,7 +61,7 @@ class DetectionFrontEnd:
         self.robot_id = self.params["robot_id"]
         self.lcm = LoopClosureSparseMatching(self.params, device=device)
         self.model = (model if model is not None
-                      else make_global_descriptor(self.params))
+                      else make_global_descriptor(self.params, device))
         self.keyframe_type = ("pointcloud" if self.params.get(
             "frontend.sensor_type") == "lidar" else "rgb")
 

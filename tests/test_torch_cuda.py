@@ -1,5 +1,5 @@
-"""Tests that need the CUDA device: the hand-written kernels against their
-plain PyTorch versions. They skip on a machine without a GPU.
+"""Tests that need the CUDA device: the hand-written kernels (K1, the bank
+scan, and K2, the tile scan) against their plain PyTorch versions. They skip on a machine without a GPU.
 
 This file imports neither JAX nor the JAX package, so it also runs where
 only PyTorch is installed; there the JAX-importing ``tests/conftest.py``
@@ -39,4 +39,36 @@ def test_bank_scan_matches_plain_version_on_card(dtype):
         rv, ri = nns.cosine_topk_scan_ref(b, n, q, k)
         assert torch.equal(gi, ri)
         assert torch.equal(gv, rv)
+    assert gi[4, :2].tolist() == [10, 9000]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tile_scan_matches_plain_version_on_card(dtype):
+    """K2 bit for bit against its plain version (same summation order and
+    roundings, then one multiply by the row's inverse norm): ties across
+    splits, n < k with its (-inf, 0) tail, a batch that is not a multiple
+    of 32, non-unit rows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    rng = np.random.default_rng(2)
+    rows = rng.standard_normal((20000, 64)) * rng.uniform(0.5, 2.0,
+                                                          (20000, 1))
+    bank = torch.from_numpy(rows.astype(np.float32)).cuda()
+    bank[9000] = bank[10]
+    inv = 1.0 / bank.norm(dim=1)
+    q = torch.from_numpy(rng.standard_normal((70, 64)).astype(
+        np.float32)).cuda()
+    q[4] = bank[10]
+    b = bank.to(dtype)
+    for n, k in ((19000, 10), (3, 8), (20000, 1)):
+        before = nns.tile_scan_launches
+        gv, gi = nns.cosine_topk_fused(b, inv, n, q, k)
+        assert nns.tile_scan_launches == before + 1
+        rv, ri = nns.cosine_topk_fused_ref(b, inv, n, q, k)
+        assert torch.equal(gi, ri)
+        assert torch.equal(gv, rv)
+        if n < k:
+            assert gi[:, n:].eq(0).all() and gv[:, n:].isneginf().all()
+    gv, gi = nns.cosine_topk_fused(b, inv, 19000, q, 10)
     assert gi[4, :2].tolist() == [10, 9000]

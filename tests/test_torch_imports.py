@@ -34,6 +34,26 @@ def test_package_imports_without_jax():
     assert int(out.stdout.strip()) >= 30
 
 
+def test_vpr_models_entry_and_kernels_import_without_jax():
+    """The second slice's modules by name: the VPR models, the entry twin
+    and the kernels' wrappers."""
+    code = (
+        "import sys, importlib\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['cslam_tpu'] = None\n"
+        "for name in ('models', 'models.preprocess', 'models.backbones',\n"
+        "             'models.golden', 'models.convert', 'models.cosplace',\n"
+        "             'models.pca', 'models.netvlad', 'entry', 'convert',\n"
+        "             'ops.nns'):\n"
+        "    importlib.import_module('cslam_tpu_torch.' + name)\n"
+        "from cslam_tpu_torch.ops import nns\n"
+        "print(nns.KERNEL_K, sorted(nns.SOURCES))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["10", "['bank_scan',", "'tile_scan']"]
+
+
 def test_source_scan_finds_no_jax_import():
     files = sorted((REPO / "cslam_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
@@ -55,6 +75,9 @@ def _entry_points(params):
     from cslam_tpu_torch.selection.mac import MAC
     from cslam_tpu_torch.types import Edge
 
+    from cslam_tpu_torch.entry import entry
+    from cslam_tpu_torch.models import make_global_descriptor
+
     graph = FactorGraph()
     graph.add_variable((0, 0), np.eye(4))
     world = SyntheticWorld(nb_places=4)
@@ -66,12 +89,16 @@ def _entry_points(params):
         "FactorGraph.to_arrays": graph.to_arrays,
         "SwarmSimulator": lambda: SwarmSimulator(
             1, world, [circle_trajectory(2, 1.0, 4)]),
+        "make_global_descriptor": lambda: make_global_descriptor(
+            {"frontend.nn_checkpoint": "random"}),
+        "entry": entry,
     }
 
 
 @pytest.mark.parametrize("name", [
     "resolve_device", "DescriptorBank", "LoopClosureSparseMatching", "MAC",
-    "FactorGraph.to_arrays", "SwarmSimulator"])
+    "FactorGraph.to_arrays", "SwarmSimulator", "make_global_descriptor",
+    "entry"])
 def test_default_device_without_gpu_raises(monkeypatch, name):
     from helpers import matching_params
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -92,3 +119,19 @@ def test_cpu_tensors_take_the_plain_version():
     assert nns.launches == before
     with pytest.raises(ValueError, match="no bank scan"):
         nns.cosine_topk_scan(bank.to("meta"), 33, q.to("meta"), 4)
+
+
+def test_cpu_tensors_take_k2s_plain_version():
+    """The same for K2, whose counter is its own: K1's stays put too."""
+    from cslam_tpu_torch.ops import nns
+    before, before_k1 = nns.tile_scan_launches, nns.launches
+    bank = torch.randn(40, 8)
+    inv = 1.0 / bank.norm(dim=1)
+    q = torch.randn(3, 8)
+    got = nns.cosine_topk_fused(bank, inv, 33, q, 4)
+    ref = nns.cosine_topk_fused_ref(bank, inv, 33, q, 4)
+    assert torch.equal(got[1], ref[1]) and torch.equal(got[0], ref[0])
+    assert (nns.tile_scan_launches, nns.launches) == (before, before_k1)
+    with pytest.raises(ValueError, match="no tile scan"):
+        nns.cosine_topk_fused(bank.to("meta"), inv.to("meta"), 33,
+                              q.to("meta"), 4)
