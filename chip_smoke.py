@@ -9,11 +9,13 @@ Builds the hand-written kernels from the sources in the checkout (one
 
 * phase ``bank_scan`` — the bank search at the size its users run it
   (131072 x 64 bank, 100,000 seeded unit rows, batch 512, k = 10) through
-  ``DescriptorBank`` on CUDA, for an f32 and a bf16 bank; then the kernel
-  against its plain PyTorch version on the card (main shape, a tie case, an
-  n < k case and a B = 700 case: exact indices, values within 1e-6), and
-  times of the kernel, the plain version and ``torch.matmul`` +
-  ``torch.topk`` (the library yardstick, which the port never calls);
+  ``DescriptorBank`` on CUDA, for an f32 and a bf16 bank; then K1 against
+  its plain PyTorch version on the card, bit for bit, on both sides of the
+  path threshold (B = 1, 8, 16, 32, 512, 700; ties across splits, n < k,
+  k = 128, and near-tie, identical, zero rows), with the survivors of the
+  screen per query and its observed error beside its bound; and times of
+  the kernel, the plain version and ``torch.matmul`` + ``torch.topk`` (the
+  library yardstick, which the port never calls), warm and L2-flushed;
 * phase ``swarm`` — the port's ``SwarmSimulator`` on CUDA with 4 robots x
   120 keyframes (480 poses, the largest swarm on the dense MAC and PGO
   tiers), plus a two-robot run on CUDA held against the same run on the CPU
@@ -26,12 +28,13 @@ Builds the hand-written kernels from the sources in the checkout (one
   with TF32 off; then ``entry.frontend_step`` (the twin of
   ``__graft_entry__.entry``) at B = 1 and B = 32 against a 131072 x 64 bank
   of 100,000 non-unit rows, k = 8, its search the tile-scan kernel K2, held
-  against ``ops.topk.cosine_topk``; then K2 against its plain version (main
-  shape B = 512, k = 10, ties across splits, n < k, B = 700, a bf16 bank:
-  exact) and K2's times at B = 1 and B = 512 beside its plain version,
-  ``torch.topk`` of ``matmul`` (the library yardstick) and its bound;
-  last, ``torch.profiler`` device times of the step and of K2 (the
-  profiler may slow what runs after it, so it runs after every timing).
+  against ``ops.topk.cosine_topk``; then K2 against its plain version, bit
+  for bit, on the cases K1 takes (plus norms from 1e-3 to 1e3), f32 and
+  bf16 banks; K2's times at B = 1 and B = 512 beside its plain version,
+  ``torch.topk`` of ``matmul`` (the library yardstick) and its bound; last,
+  ``torch.profiler`` device times and CUDA kernels per call of the step, of
+  K2 and of K1 (the profiler may slow what runs after it, so it runs after
+  every timing).
 
 Every kernel's launch counter is set to 0 just before each main-path run and
 read just after; a kernel that did not launch fails the run. Prints the
@@ -43,14 +46,18 @@ from __future__ import annotations
 
 import argparse
 import json
+import struct
 import subprocess
 import sys
 import time
 
-# H100 SXM published peaks (dense): memory bytes/s and FLOP/s by input type
+# H100 SXM published peaks (dense): memory bytes/s; FLOP/s of the tensor
+# cores by the screen's input type (an f32 bank is screened in TF32, a bf16
+# bank in bf16) and of the FP32 cores outside them
 _PEAK_BYTES = 3.35e12
-_PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
-_VALUE_TOL = 1e-6   # kernel and plain version round identically (see nns.py)
+_PEAK_FLOPS = {"float32": 495e12, "bfloat16": 989e12}
+_PEAK_FP32 = 67e12
+_VALUE_TOL = 1e-6   # frontend_step against ops.topk.cosine_topk (other order)
 
 
 def _card_line() -> str:
@@ -95,12 +102,24 @@ def _time_cold_ms(fn, iters: int, flush, warmup: int = 2) -> float:
     return sum(a.elapsed_time(b) for a, b in pairs) / iters
 
 
+def _bound(flops: float, nbytes: float, dtype: str) -> dict:
+    """The least time the card could take for ``flops`` on the tensor cores
+    (the screen's input type) and ``nbytes`` of memory traffic, and the same
+    on the FP32 cores (the rate the exact rescore runs at)."""
+    t_flops, t_bytes = flops / _PEAK_FLOPS[dtype], nbytes / _PEAK_BYTES
+    return {"bound_ms": max(t_flops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_flops >= t_bytes else "bytes",
+            "bound_fp32_ms": max(flops / _PEAK_FP32, t_bytes) * 1e3,
+            "flops": flops, "bytes": nbytes}
+
+
 def _device_profile(fn, iters: int = 20) -> dict:
     """Per call: the host wall time, the device time of every CUDA kernel
-    ``fn`` launches and of the tile scan's two kernels (``torch.profiler``),
-    and the device's idle share of the wall; device times are ``None``
-    where the profiler saw none. Run it after every timing: its tracing may
-    slow what runs after it."""
+    ``fn`` launches, of the bank scans' scan kernels (``screen_kernel``,
+    ``small_kernel``) and merge kernel (``torch.profiler``), the number of
+    CUDA kernels, and the device's idle share of the wall; device times are
+    ``None`` where the profiler saw none. Run it after every timing: its
+    tracing may slow what runs after it."""
     import warnings
 
     import torch
@@ -125,15 +144,19 @@ def _device_profile(fn, iters: int = 20) -> dict:
                    if pick(e.key)) / 1e3 / iters
     device_ms = ms(lambda key: True)
     if device_ms <= 0:
-        return {"wall_ms": wall_ms, "device_ms": None, "idle_share": None}
+        return {"wall_ms": wall_ms, "device_ms": None, "idle_share": None,
+                "kernels_per_call": None}
     return {"wall_ms": wall_ms, "device_ms": device_ms,
-            "scan_kernel_ms": ms(lambda key: "scan_kernel" in key),
+            "scan_kernel_ms": ms(lambda key: "screen_kernel" in key
+                                 or "small_kernel" in key),
             "merge_kernel_ms": ms(lambda key: "merge_kernel" in key),
+            "kernels_per_call": sum(e.count for e in kernels) / iters,
             "idle_share": max(0.0, 1.0 - device_ms / wall_ms)}
 
 
-def _compare(name, got, ref, failures) -> float:
-    """Exact indices; finite values within _VALUE_TOL; -inf where -inf."""
+def _compare(name, got, ref, failures, tol=0.0) -> float:
+    """Exact indices; finite values within ``tol`` (a kernel against its
+    plain version: 0, bit for bit); -inf where -inf."""
     import torch
     (gv, gi), (rv, ri) = got, ref
     torch.cuda.synchronize()
@@ -145,11 +168,132 @@ def _compare(name, got, ref, failures) -> float:
         failures.append(f"{name}: -inf slots differ")
         return float("inf")
     err = float((gv[fin] - rv[fin]).abs().max()) if bool(fin.any()) else 0.0
-    if err > _VALUE_TOL:
-        failures.append(f"{name}: max |value diff| {err} > {_VALUE_TOL}")
+    if err > tol:
+        failures.append(f"{name}: max |value diff| {err} > {tol}")
     print(f"  {name}: indices equal={torch.equal(gi.long(), ri.long())} "
           f"max_abs_err={err}")
     return err
+
+
+def _scan_case(kernel, name, bank, inv, n, q, k, failures):
+    """One call of K1 (``bank_scan``) or K2 (``tile_scan``) against its
+    plain version, bit for bit; then the same call with the kernel's
+    counters on: survivors per query (filter passes) and, on the screen
+    path, the largest observed |s~ - v| / (||q|| ||b|| |inv|) beside the
+    kernel's eps / (||q|| ||b|| |inv|). Returns (record, result)."""
+    import torch
+
+    from cslam_tpu_torch.ops import nns
+    if kernel == "bank_scan":
+        def run(stats=None):
+            return nns._cosine_topk_scan_cuda(bank, n, q, k, stats=stats)
+        ref = nns.cosine_topk_scan_ref(bank, n, q, k)
+    else:
+        def run(stats=None):
+            return nns._cosine_topk_fused_cuda(bank, inv, n, q, k,
+                                               stats=stats)
+        ref = nns.cosine_topk_fused_ref(bank, inv, n, q, k)
+    dtype = str(bank.dtype).split(".")[-1]
+    got = run()
+    err = _compare(f"{kernel} {dtype} {name}", got, ref, failures)
+    stats = torch.zeros(8, dtype=torch.int32, device="cuda")
+    run(stats)
+    survivors, bits = stats[:2].tolist()
+    cycles = stats[2:].view(torch.int64).tolist()
+    B = q.shape[0]
+    screen = B >= nns.SCREEN_MIN_B
+    rec = {"case": name, "dtype": dtype, "B": B, "k": k, "n": n,
+           "path": "screen" if screen else "small", "max_abs_err": err,
+           "survivors_per_query": survivors / B,
+           # block time by phase: screen path (tile wait, screen + filter,
+           # exact rescore + insertion); small path (tile wait, dots +
+           # insertion, the block's final merge)
+           "phase_shares": [c / max(1, sum(cycles)) for c in cycles]}
+    if screen:
+        eps = nns.SCREEN_EPS["tf32" if dtype == "float32" else
+                             "bf16" if kernel == "bank_scan"
+                             else "bf16_rounded_queries"]
+        observed = struct.unpack("f", struct.pack("I", bits & 0xFFFFFFFF))[0]
+        rec.update(max_screen_err_over_qb=observed, eps_over_qb=eps)
+        if not observed <= eps:
+            failures.append(f"{kernel} {dtype} {name}: screen error "
+                            f"{observed} above its bound {eps}")
+    print("    " + json.dumps(rec))
+    return rec, got
+
+
+def _scan_cases(kernel, bank, inv, n, rng, failures):
+    """Every case of one kernel on one bank (f32 or bf16, 131072 x 64,
+    ``n`` valid rows) on both sides of the path threshold, all exact: the
+    batch sizes, ties across splits, n < k, k = 128 (K1), and adversarial
+    banks of 20,000 rows: near-ties, identical rows (every row survives the
+    screen), zero rows and (K2) norms from 1e-3 to 1e3."""
+    import numpy as np
+    import torch
+    D, dtype = bank.shape[1], bank.dtype
+    k = 10
+    cases = []
+
+    def queries(B):
+        return torch.from_numpy(rng.standard_normal((B, D)).astype(
+            np.float32)).cuda()
+
+    def case(name, b, inv_, n_, q, k_=k):
+        rec, got = _scan_case(kernel, name, b, inv_, n_, q, k_, failures)
+        cases.append(rec)
+        return got
+
+    for B in (1, 8, 16, 32, 700):
+        case("random rows", bank, inv, n, queries(B))
+    tie = bank.clone()
+    tie_inv = None if inv is None else inv.clone()
+    for r in (300, 50000, 99999):
+        tie[r] = tie[100]
+        if inv is not None:
+            tie_inv[r] = tie_inv[100]
+    for B in (8, 32):
+        q = queries(B)
+        q[3] = tie[100].float()
+        got = case("ties across splits", tie, tie_inv, n, q)
+        if got[1][3, :4].tolist() != [100, 300, 50000, 99999]:
+            failures.append(f"{kernel} tie order B={B}: "
+                            f"{got[1][3, :4].tolist()}")
+    for B in (1, 512):
+        got = case("n < k (n=5)", bank, inv, 5, queries(B))
+        if kernel == "tile_scan" and not (
+                bool(got[1][:, 5:].eq(0).all())
+                and bool(got[0][:, 5:].isneginf().all())):
+            failures.append(f"tile_scan n < k B={B}: tail is not (-inf, 0)")
+    if kernel == "bank_scan":
+        for B in (8, 64):
+            case("k = 128", bank, inv, n, queries(B), 128)
+
+    n_adv = 20000
+    base = rng.standard_normal(D)
+    raw = rng.standard_normal((n_adv, D))
+    adversarial = {
+        "near ties": base + 1e-7 * rng.standard_normal((n_adv, D)),
+        "identical rows": np.tile(base, (n_adv, 1)),
+        "zero rows": np.where((np.arange(n_adv) % 3 == 0)[:, None], 0.0,
+                              raw)}
+    if kernel == "tile_scan":
+        adversarial["norms 1e-3 to 1e3"] = raw * np.logspace(
+            -3, 3, n_adv)[rng.permutation(n_adv)][:, None]
+    for name, rows in adversarial.items():
+        rows = torch.from_numpy(rows.astype(np.float32)).cuda()
+        inv_a = None
+        if kernel == "tile_scan":
+            inv_a = 1.0 / torch.clamp(rows.norm(dim=1), min=1e-12)
+        b = rows.to(dtype)
+        for B in (8, 32):
+            q = queries(B)
+            q[0] = torch.from_numpy(base.astype(np.float32)).cuda()
+            got = case(name, b, inv_a, n_adv, q)
+            if name == "identical rows" and got[1][0].tolist() != list(
+                    range(k)):
+                failures.append(f"{kernel} identical rows B={B}: "
+                                f"{got[1][0].tolist()}")
+    return cases
 
 
 def phase_bank_scan(results, failures):
@@ -163,6 +307,8 @@ def phase_bank_scan(results, failures):
     rng = np.random.default_rng(0)
     rows = rng.standard_normal((n, D)).astype(np.float32)
     queries = rng.standard_normal((B, D)).astype(np.float32)
+    scratch = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    flush = scratch.zero_                    # 256 MB > the 50 MB L2
     out = {}
     for dtype in ("float32", "bfloat16"):
         bank = DescriptorBank(dim=D, capacity=N, dtype=dtype, device="cuda")
@@ -183,49 +329,34 @@ def phase_bank_scan(results, failures):
         err = _compare(f"{dtype} main shape", (sims, idx),
                        nns.cosine_topk_scan_ref(bank._bank, n, qt, k),
                        failures)
+        main, _ = _scan_case("bank_scan", "main shape", bank._bank, None, n,
+                             qt, k, failures)
         itemsize = 2 if dtype == "bfloat16" else 4
-        flops = 2.0 * B * n * D
-        nbytes = n * D * itemsize + B * D * 4 + B * k * 8
-        t_flops, t_bytes = flops / _PEAK_FLOPS[dtype], nbytes / _PEAK_BYTES
         rows_f = bank._bank[:n].float()
         q_k = nns._kernel_queries(bank._bank, qt)
+
+        def kernel():
+            return nns.cosine_topk_scan(bank._bank, n, qt, k)
+
+        def library():
+            return torch.topk(q_k @ rows_f.T, k, dim=1)
         out[dtype] = {
             "launches_main_path": launches, "max_abs_err": err,
-            "ms": _time_ms(lambda: nns.cosine_topk_scan(bank._bank, n, qt, k),
-                           20),
+            "survivors_per_query": main["survivors_per_query"],
+            "phase_shares": main["phase_shares"],
+            "max_screen_err_over_qb": main.get("max_screen_err_over_qb"),
+            "eps_over_qb": main.get("eps_over_qb"),
+            "ms": _time_ms(kernel, 20),
+            "ms_l2_flushed": _time_cold_ms(kernel, 20, flush),
             "plain_ms": _time_ms(
                 lambda: nns.cosine_topk_scan_ref(bank._bank, n, qt, k), 3, 1),
-            "library_ms": _time_ms(
-                lambda: torch.topk(q_k @ rows_f.T, k, dim=1), 20),
-            "bound_ms": max(t_flops, t_bytes) * 1e3,
-            "bound_by": "operations" if t_flops >= t_bytes else "bytes",
-            "flops": flops, "bytes": nbytes}
+            "library_ms": _time_ms(library, 20),
+            "library_ms_l2_flushed": _time_cold_ms(library, 20, flush),
+            **_bound(2.0 * B * n * D, n * D * itemsize + B * D * 4
+                     + B * k * 12, dtype)}
         print(f"  {dtype}: " + json.dumps(out[dtype]))
-        if dtype == "float32":
-            # tie case: duplicated rows across splits, query = the row
-            tie = bank._bank.clone()
-            for r in (300, 50000, 99999):
-                tie[r] = tie[100]
-            qt2 = qt[:8].clone()
-            qt2[3] = tie[100]
-            _compare("tie case", nns.cosine_topk_scan(tie, n, qt2, k),
-                     nns.cosine_topk_scan_ref(tie, n, qt2, k), failures)
-            got = nns.cosine_topk_scan(tie, n, qt2, k)
-            if got[1][3, :4].tolist() != [100, 300, 50000, 99999]:
-                failures.append(f"tie order {got[1][3, :4].tolist()}")
-            _compare("n < k case (n=5, k=10)",
-                     nns.cosine_topk_scan(bank._bank, 5, qt, k),
-                     nns.cosine_topk_scan_ref(bank._bank, 5, qt, k), failures)
-            q700 = torch.from_numpy(
-                rng.standard_normal((700, D)).astype(np.float32)).cuda()
-            _compare("B = 700 case", nns.cosine_topk_scan(bank._bank, n,
-                                                          q700, k),
-                     nns.cosine_topk_scan_ref(bank._bank, n, q700, k),
-                     failures)
-            _compare("k = 128 case", nns.cosine_topk_scan(bank._bank, n,
-                                                          qt[:64], 128),
-                     nns.cosine_topk_scan_ref(bank._bank, n, qt[:64], 128),
-                     failures)
+        out[dtype]["cases"] = _scan_cases("bank_scan", bank._bank, None, n,
+                                          rng, failures)
         del bank
         torch.cuda.empty_cache()
     results["bank_scan"] = out
@@ -246,46 +377,21 @@ def _frontend_bank(rng, n):
     return bank, inv
 
 
-def _tile_scan_checks(bank, inv, n, rng, failures) -> float:
-    """K2 against its plain version on the card: exact indices and values
-    (max_abs_err 0), tie order across splits, the (-inf, 0) tail."""
+def _tile_scan_checks(bank, inv, n, rng, failures):
+    """K2 against its plain version on the card, f32 and bf16 banks: every
+    case of ``_scan_cases`` plus the main shape (B = 512, k = 10), all
+    exact. Returns (largest max_abs_err, the case records)."""
     import numpy as np
     import torch
-
-    from cslam_tpu_torch.ops import nns
-    D, k = bank.shape[1], nns.KERNEL_K
-    q = torch.from_numpy(rng.standard_normal((512, D)).astype(
+    cases = []
+    q = torch.from_numpy(rng.standard_normal((512, bank.shape[1])).astype(
         np.float32)).cuda()
-    errs = []
-
-    def check(name, b, inv_, n_, q_):
-        got = nns.cosine_topk_fused(b, inv_, n_, q_, k)
-        err = _compare(f"tile_scan {name}", got,
-                       nns.cosine_topk_fused_ref(b, inv_, n_, q_, k),
-                       failures)
-        if err != 0.0:
-            failures.append(f"tile_scan {name}: max_abs_err {err} != 0")
-        errs.append(err)
-        return got
-
-    check("main shape (B=512, k=10)", bank, inv, n, q)
-    tie, tie_inv = bank.clone(), inv.clone()
-    for r in (300, 50000, 99999):
-        tie[r], tie_inv[r] = tie[100], tie_inv[100]
-    q2 = q[:8].clone()
-    q2[3] = tie[100]
-    got = check("tie case", tie, tie_inv, n, q2)
-    if got[1][3, :4].tolist() != [100, 300, 50000, 99999]:
-        failures.append(f"tile_scan tie order {got[1][3, :4].tolist()}")
-    got = check("n < k case (n=5, k=10)", bank, inv, 5, q)
-    if not (bool(got[1][:, 5:].eq(0).all())
-            and bool(got[0][:, 5:].isneginf().all())):
-        failures.append("tile_scan n < k: tail is not (-inf, 0)")
-    q700 = torch.from_numpy(rng.standard_normal((700, D)).astype(
-        np.float32)).cuda()
-    check("B = 700 case", bank, inv, n, q700)
-    check("bf16 bank", bank.to(torch.bfloat16), inv, n, q)
-    return max(errs)
+    for b in (bank, bank.to(torch.bfloat16)):
+        rec, _ = _scan_case("tile_scan", "main shape", b, inv, n, q, 10,
+                            failures)
+        cases.append(rec)
+        cases += _scan_cases("tile_scan", b, inv, n, rng, failures)
+    return max(c["max_abs_err"] for c in cases), cases
 
 
 def _tile_scan_times(bank, inv, n, q, k) -> dict:
@@ -298,9 +404,6 @@ def _tile_scan_times(bank, inv, n, q, k) -> dict:
     rows, inv_n = bank[:n], inv[:n]
     scratch = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
     flush = scratch.zero_                    # 256 MB > the 50 MB L2
-    flops = 2.0 * B * n * D + B * n          # dot products, x inv_norms
-    nbytes = n * D * 4 + n * 4 + B * D * 4 + B * k * 8
-    t_flops, t_bytes = flops / _PEAK_FLOPS["float32"], nbytes / _PEAK_BYTES
     return {
         "B": B, "k": k,
         "ms": _time_cold_ms(
@@ -310,9 +413,9 @@ def _tile_scan_times(bank, inv, n, q, k) -> dict:
             warmup=1),
         "library_ms": _time_cold_ms(
             lambda: torch.topk((q @ rows.T) * inv_n, k, dim=1), 20, flush),
-        "bound_ms": max(t_flops, t_bytes) * 1e3,
-        "bound_by": "operations" if t_flops >= t_bytes else "bytes",
-        "flops": flops, "bytes": nbytes}
+        # dot products, x inv_norms; rows, norms and queries in, f32 + int64 out
+        **_bound(2.0 * B * n * D + B * n,
+                 n * D * 4 + n * 4 + B * D * 4 + B * k * 12, "float32")}
 
 
 def phase_frontend(results, failures):
@@ -425,8 +528,8 @@ def phase_frontend(results, failures):
     out["launches_main_path"] = launches
     print("  " + json.dumps(out))
 
-    out["tile_scan_max_abs_err"] = _tile_scan_checks(bank, inv, n, rng,
-                                                     failures)
+    out["tile_scan_max_abs_err"], out["tile_scan_cases"] = (
+        _tile_scan_checks(bank, inv, n, rng, failures))
     queries = {}
     for B, k in ((1, 8), (512, 10)):
         queries[B] = torch.from_numpy(rng.standard_normal(
@@ -449,6 +552,13 @@ def phase_frontend(results, failures):
             lambda: torch.topk((q @ bank[:n].T) * inv[:n], k, dim=1))
         print(f"  tile_scan B={B} profile: " + json.dumps(timing["profile"])
               + " library: " + json.dumps(timing["library_profile"]))
+    # K1 on the same bank at the bench batch and at a swarm-sized batch
+    for B in (512, 8):
+        q = queries[512][:B]
+        out[f"bank_scan_b{B}_profile"] = _device_profile(
+            lambda: nns.cosine_topk_scan(bank, n, q, 10))
+        print(f"  bank_scan B={B} profile: "
+              + json.dumps(out[f"bank_scan_b{B}_profile"]))
     results["frontend"] = out
 
 
@@ -580,19 +690,27 @@ def main() -> int:
     card = _card_line()
     print(card)
     f32 = results.get("bank_scan", {}).get("float32", {})
+    bf16 = results.get("bank_scan", {}).get("bfloat16", {})
+    front = results.get("frontend", {})
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernel = {
         "name": "bank_scan", "route": "cuda",
         "source": "cslam_tpu_torch/csrc/bank_scan.cu",
         "replaces": "cslam_tpu/ops/nns_pallas.py:177",
         "launches": results.get("swarm", {}).get(
             "launches", f32.get("launches_main_path", 0)),
-        "max_abs_err": f32.get("max_abs_err"),
-        "ms": f32.get("ms"), "plain_ms": f32.get("plain_ms"),
-        "bound_ms": f32.get("bound_ms"), "bound_by": f32.get("bound_by"),
-        "library_ms": f32.get("library_ms"),
-        "variants": {"bfloat16": results.get("bank_scan", {}).get(
-            "bfloat16")}}
-    front = results.get("frontend", {})
+        "max_abs_err": max([c.get("max_abs_err", 0.0) for c in
+                            f32.get("cases", []) + bf16.get("cases", [])]
+                           + [f32.get("max_abs_err", 0.0),
+                              bf16.get("max_abs_err", 0.0)]),
+        **{key: f32.get(key) for key in keys},
+        "ms_l2_flushed": f32.get("ms_l2_flushed"),
+        "library_ms_l2_flushed": f32.get("library_ms_l2_flushed"),
+        "bound_fp32_ms": f32.get("bound_fp32_ms"),
+        "kernels_per_call": front.get("bank_scan_b512_profile", {}).get(
+            "kernels_per_call"),
+        "variants": {"bfloat16": {key: v for key, v in bf16.items()
+                                  if key != "cases"}}}
     b1 = front.get("tile_scan_b1", {})   # the frontend step's shape
     tile = {
         "name": "tile_scan", "route": "cuda",
@@ -600,9 +718,11 @@ def main() -> int:
         "replaces": "cslam_tpu/ops/nns_pallas.py:34",
         "launches": front.get("launches_main_path", {}).get("tile_scan", 0),
         "max_abs_err": front.get("tile_scan_max_abs_err"),
-        "ms": b1.get("ms"), "plain_ms": b1.get("plain_ms"),
-        "bound_ms": b1.get("bound_ms"), "bound_by": b1.get("bound_by"),
-        "library_ms": b1.get("library_ms"),
+        **{key: b1.get(key) for key in keys},
+        "bound_fp32_ms": b1.get("bound_fp32_ms"),
+        "kernels_per_call": b1.get("profile", {}).get("kernels_per_call"),
+        "device_ms": b1.get("profile", {}).get("device_ms"),
+        "library_device_ms": b1.get("library_profile", {}).get("device_ms"),
         "variants": {"B512_k10": front.get("tile_scan_b512")}}
     print(json.dumps({"kernels": [kernel, tile]}))
     if failures:

@@ -29,13 +29,23 @@ for ``k <= KERNEL_K``:
 
 The TPU artefacts stay behind: no tile multiples, no 512-row batch chunking,
 no dropped-value bound and no whole-batch fallback. Any B, any N and any
-``n <= N`` work. Each kernel's design and what bounds it on the card are in
-the note at the top of its source.
+``n <= N`` work. Both kernels take two paths, chosen by the batch size alone:
+a tensor-core screen with an exact FP32 rescore for ``B >= SCREEN_MIN_B``,
+exact dots one row per thread below it (``csrc/scan_tile.cuh`` holds both,
+the screen's error bound and why the result is exact; :func:`screen_ref`
+emulates the screen for the tests). The query norm of the final scaling is
+summed in the plain order too (:func:`_q_scale`), so the kernels' fused
+epilogue and the plain versions agree bit for bit. Each kernel's design and
+what bounds it on the card are in the note at the top of its source.
 
 Each wrapper runs its plain version (``*_ref``) for a CPU tensor, and for a
-CUDA tensor launches its kernel or raises. ``launches`` counts K1's kernel
-launches and ``tile_scan_launches`` K2's (and nothing else), so a run can
-show that its searches went through the kernels.
+CUDA tensor launches its kernel or raises; on the card each call is two CUDA
+kernels (scan and merge) writing straight into the f32 / int64 outputs.
+The bank, the queries and ``inv_norms`` must be 16-byte aligned (the tiles
+arrive by 16-byte ``cp.async``); the wrapper raises otherwise and never
+copies. ``launches`` counts K1's wrapper launches and ``tile_scan_launches``
+K2's (and nothing else), so a run can show that its searches went through
+the kernels.
 
 The kernels are built from ``csrc/*.cu`` (with the device code they share,
 ``csrc/scan_tile.cuh``) with ``nvcc`` for ``sm_90a`` at first use
@@ -45,8 +55,8 @@ The kernels are built from ``csrc/*.cu`` (with the device code they share,
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
-import math
 import os
 import shutil
 import subprocess
@@ -62,10 +72,13 @@ from cslam_tpu_torch.ops.topk import topk_ties_ascending
 MAX_K = 128       # largest k K1 takes
 KERNEL_K = 10     # largest k K2 takes (the TPU kernel's per-tile candidates)
 MAX_DIM = 128     # largest descriptor width the kernels' shared memory takes
-_ROWS_PER_TILE = 256
-_QUERIES_PER_BLOCK = 32
-_MAX_SPLITS = 32  # K1's merge kernel gives one split to each lane of a warp
-_TILE_SCAN_MAX_SPLITS = 256  # bounds K2's merge walk (S * k entries a warp)
+SCREEN_MIN_B = 16  # batches from this size take the tensor-core screen
+#: the screen's error bound eps / (||q|| ||b_r|| |inv_r|), by the MMA's input
+#: rounding (``csrc/scan_tile.cuh`` derives them): TF32 for an f32 bank; bf16
+#: for a bf16 bank with K1's (already bf16) queries; bf16 for a bf16 bank
+#: with K2's f32 queries, rounded to bf16 in the MMA operand
+SCREEN_EPS = {"tf32": 2.0 ** -7, "bf16": 2.0 ** -10,
+              "bf16_rounded_queries": 2.0 ** -6}
 _EPS = 1e-12
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -77,12 +90,16 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas", "-v"]
 
 _vp, _ci = ctypes.c_void_p, ctypes.c_int
-#: each library's C entry point and its argument types
+#: each library's C entry points and their argument types
 _ENTRY = {
-    "bank_scan": ("cslam_bank_scan", [_vp, _ci, _ci, _ci, _vp, _ci, _ci, _ci,
-                                      _ci, _vp, _vp, _vp, _vp, _vp]),
-    "tile_scan": ("cslam_tile_scan", [_vp, _ci, _vp, _ci, _ci, _vp, _ci, _ci,
-                                      _ci, _ci, _vp, _vp, _vp, _vp, _vp]),
+    "bank_scan": {
+        "cslam_bank_scan": [_vp, _ci, _ci, _ci, _vp, _ci, _ci, _ci, _vp, _vp,
+                            _vp, _vp, _vp, _vp],
+        "cslam_bank_scan_splits": [_ci, _ci, _ci, _ci, _ci]},
+    "tile_scan": {
+        "cslam_tile_scan": [_vp, _ci, _vp, _ci, _ci, _vp, _ci, _ci, _ci, _vp,
+                            _vp, _vp, _vp, _vp, _vp],
+        "cslam_tile_scan_splits": [_ci, _ci, _ci, _ci, _ci]},
 }
 
 #: K1 kernel launches since import (or since the caller last reset it)
@@ -150,18 +167,29 @@ def _load(name: str) -> ctypes.CDLL:
     with _lib_lock:
         if name not in _libs:
             lib = ctypes.CDLL(str(build([name])[name]))
-            fn_name, argtypes = _ENTRY[name]
-            fn = getattr(lib, fn_name)
-            fn.argtypes = argtypes
-            fn.restype = _ci
+            for fn_name, argtypes in _ENTRY[name].items():
+                fn = getattr(lib, fn_name)
+                fn.argtypes = argtypes
+                fn.restype = _ci
             _libs[name] = lib
     return _libs[name]
 
 
+def _q_scale(q_f32: torch.Tensor) -> torch.Tensor:
+    """``1/max(||q||, 1e-12)`` per query, ``||q||^2`` summed over ``d =
+    0..D-1`` from zero with each square and each sum rounded to float32 (the
+    kernels' merge computes it the same way; ``torch.linalg.vector_norm``
+    leaves its reduction order to the device), then a correctly rounded
+    square root and reciprocal."""
+    ss = torch.zeros(q_f32.shape[0], dtype=torch.float32,
+                     device=q_f32.device)
+    for d in range(q_f32.shape[1]):
+        ss = ss + q_f32[:, d] * q_f32[:, d]
+    return 1.0 / torch.clamp(torch.sqrt(ss), min=_EPS)
+
+
 def _scale(vals: torch.Tensor, q_f32: torch.Tensor) -> torch.Tensor:
-    q_inv = 1.0 / torch.clamp(torch.linalg.vector_norm(q_f32, dim=-1),
-                              min=_EPS)
-    return vals * q_inv[:, None]
+    return vals * _q_scale(q_f32)[:, None]
 
 
 def _kernel_queries(bank: torch.Tensor, q_f32: torch.Tensor) -> torch.Tensor:
@@ -230,16 +258,51 @@ def cosine_topk_fused_ref(bank: torch.Tensor, inv_norms: torch.Tensor,
     return _scale(vals, q_f32), idx
 
 
-def _splits(n: int, num_query_blocks: int, device: torch.device,
-            max_splits: int = _MAX_SPLITS):
-    """(split_rows, S): enough (split x query block) blocks to fill every
-    SM twice, each split a whole number of tiles."""
-    tiles = max(1, math.ceil(n / _ROWS_PER_TILE))
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    S = min(max_splits, tiles,
-            max(1, math.ceil(2 * sms / num_query_blocks)))
-    split_rows = math.ceil(tiles / S) * _ROWS_PER_TILE
-    return split_rows, max(1, math.ceil(n / split_rows))
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32 (10-bit mantissa, to nearest, ties away from
+    zero: ``cvt.rna.tf32.f32``)."""
+    bits = x.float().contiguous().view(torch.int32).to(torch.int64)
+    bits = ((bits & 0xFFFFFFFF) + 0x1000) & 0xFFFFE000
+    return (bits - ((bits & 0x80000000) << 1)).to(torch.int32).view(
+        torch.float32)
+
+
+def screen_ref(bank: torch.Tensor, n: int, queries: torch.Tensor,
+               inv_norms: Optional[torch.Tensor] = None):
+    """The kernels' tensor-core screen, emulated (used only by the tests):
+    returns ``(s_tilde, eps)``, both float64 ``[B, n]``.
+
+    ``s_tilde`` sums the products of the MMA's rounded inputs in float64:
+    TF32 for an f32 bank; bf16 for a bf16 bank, with K1's queries (already
+    bf16-rounded) or K2's f32 queries rounded to bf16. ``eps`` is the
+    kernel's bound ``c ||q|| ||b_r||`` (K2, given ``inv_norms``: both times
+    ``inv_norms[r]``, the bound times ``|inv_norms[r]|``), with ``||q||`` of
+    the queries the kernel holds. A row survives the screen for query q
+    while ``s_tilde + eps >= tau_q``."""
+    n = max(0, min(int(n), bank.shape[0]))
+    rows = bank[:n].float()
+    q = queries.float()
+    if inv_norms is None:
+        q = _kernel_queries(bank, q)
+    if bank.dtype == torch.bfloat16:
+        q_mma, rows_mma = q.to(torch.bfloat16).float(), rows
+        c = SCREEN_EPS["bf16" if inv_norms is None
+                       else "bf16_rounded_queries"]
+    else:
+        q_mma, rows_mma = _tf32(q), _tf32(rows)
+        c = SCREEN_EPS["tf32"]
+    s_tilde = q_mma.double() @ rows_mma.double().T
+    eps = c * (torch.linalg.vector_norm(q.double(), dim=1)[:, None]
+               * torch.linalg.vector_norm(rows.double(), dim=1)[None, :])
+    if inv_norms is not None:
+        inv = inv_norms[:n].double()
+        s_tilde, eps = s_tilde * inv, eps * inv.abs()
+    return s_tilde, eps
+
+
+@functools.lru_cache(maxsize=None)
+def _lib_fn(name: str, fn_name: str):
+    return getattr(_load(name), fn_name)
 
 
 def _check_scan_args(what: str, bank: torch.Tensor, queries: torch.Tensor,
@@ -260,12 +323,50 @@ def _check_scan_args(what: str, bank: torch.Tensor, queries: torch.Tensor,
         raise ValueError(f"{what} takes D <= {MAX_DIM}, not {bank.shape[1]}")
 
 
-def _outputs(S: int, B: int, k: int, dev: torch.device):
-    """Per-split scratch and the outputs of one launch."""
-    return (torch.empty((S, B, k), dtype=torch.float32, device=dev),
-            torch.empty((S, B, k), dtype=torch.int32, device=dev),
-            torch.empty((B, k), dtype=torch.float32, device=dev),
-            torch.empty((B, k), dtype=torch.int32, device=dev))
+def _check_aligned(what: str, **tensors: torch.Tensor) -> None:
+    """The kernels load by 16-byte ``cp.async``: raise on a pointer that is
+    not 16-byte aligned (never copy behind the caller's back)."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} is not 16-byte aligned "
+                             f"(data_ptr {t.data_ptr():#x})")
+
+
+def _launch(name: str, B: int, k: int, D: int, n: int, bank: torch.Tensor,
+            args_before_queries, q: torch.Tensor, stats):
+    """Both kernels' launch: the splits S for this shape, the [B, S, k]
+    scratch, the f32 / int64 outputs, one C call (scan + merge)."""
+    dev = bank.device
+    bf16 = int(bank.dtype == torch.bfloat16)
+    with torch.cuda.device(dev):
+        S = _lib_fn(name, f"cslam_{name}_splits")(bf16, n, D, B, k)
+        if S < 1:
+            raise RuntimeError(f"{name}: no launch shape for B={B}, k={k}, "
+                               f"D={D}")
+        part_v = torch.empty((B, S, k), dtype=torch.float32, device=dev)
+        part_i = torch.empty((B, S, k), dtype=torch.int32, device=dev)
+        out_v = torch.empty((B, k), dtype=torch.float32, device=dev)
+        out_i = torch.empty((B, k), dtype=torch.int64, device=dev)
+        rc = _lib_fn(name, f"cslam_{name}")(
+            bank.data_ptr(), bf16, *args_before_queries, q.data_ptr(), B, k,
+            S, part_v.data_ptr(), part_i.data_ptr(), out_v.data_ptr(),
+            out_i.data_ptr(), None if stats is None else stats.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+    return out_v, out_i
+
+
+def _check_stats(stats) -> None:
+    """``stats``: None, or a zeroed int32 CUDA tensor of 8 that the kernel
+    fills (``scan::Stats``): [0] the filter's survivors, [1] the screen's
+    largest observed error over ||q|| ||b|| (f32 bits), [2:8] three int64
+    sums of SM cycles by phase (see ``csrc/scan_tile.cuh``). For
+    measurement only; it changes no result."""
+    if stats is not None and not (stats.dtype == torch.int32
+                                  and stats.is_cuda and stats.numel() == 8
+                                  and stats.is_contiguous()):
+        raise ValueError("stats is a contiguous int32 CUDA tensor of 8")
 
 
 def _empty(k: int, dev: torch.device):
@@ -274,37 +375,28 @@ def _empty(k: int, dev: torch.device):
 
 
 def _cosine_topk_scan_cuda(bank: torch.Tensor, n: int,
-                           queries: torch.Tensor, k: int):
+                           queries: torch.Tensor, k: int, stats=None):
     global launches
     _check_scan_args("bank scan", bank, queries, k, MAX_K)
+    _check_stats(stats)
     D = bank.shape[1]
     n = max(0, min(int(n), bank.shape[0]))
     B = queries.shape[0]
-    q_f32 = queries.float()
     if B == 0:
         return _empty(k, bank.device)
-    q = _kernel_queries(bank, q_f32).contiguous()
-    split_rows, S = _splits(n, math.ceil(B / _QUERIES_PER_BLOCK),
-                            bank.device)
-    dev = bank.device
-    part_v, part_i, out_v, out_i = _outputs(S, B, k, dev)
-    lib = _load("bank_scan")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.cslam_bank_scan(
-            bank.data_ptr(), int(bank.dtype == torch.bfloat16), n, D,
-            q.data_ptr(), B, k, split_rows, S, part_v.data_ptr(),
-            part_i.data_ptr(), out_v.data_ptr(), out_i.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"bank_scan launch failed: cudaError {rc}")
+    q = queries.float().contiguous()
+    _check_aligned("bank scan", bank=bank, queries=q)
+    out = _launch("bank_scan", B, k, D, n, bank, (n, D), q, stats)
     launches += 1
-    return _scale(out_v, q_f32), out_i.long()
+    return out
 
 
 def _cosine_topk_fused_cuda(bank: torch.Tensor, inv_norms: torch.Tensor,
-                            n: int, queries: torch.Tensor, k: int):
+                            n: int, queries: torch.Tensor, k: int,
+                            stats=None):
     global tile_scan_launches
     _check_scan_args("tile scan", bank, queries, k, KERNEL_K)
+    _check_stats(stats)
     if inv_norms.shape != (bank.shape[0],) or inv_norms.device != bank.device:
         raise ValueError(f"inv_norms {tuple(inv_norms.shape)} on "
                          f"{inv_norms.device} do not match the bank "
@@ -312,26 +404,15 @@ def _cosine_topk_fused_cuda(bank: torch.Tensor, inv_norms: torch.Tensor,
     D = bank.shape[1]
     n = max(0, min(int(n), bank.shape[0]))
     B = queries.shape[0]
-    dev = bank.device
     if B == 0:
-        return _empty(k, dev)
+        return _empty(k, bank.device)
     q = queries.float().contiguous()
     inv = inv_norms.float().contiguous()
-    split_rows, S = _splits(n, math.ceil(B / _QUERIES_PER_BLOCK), dev,
-                            _TILE_SCAN_MAX_SPLITS)
-    part_v, part_i, out_v, out_i = _outputs(S, B, k, dev)
-    lib = _load("tile_scan")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.cslam_tile_scan(
-            bank.data_ptr(), int(bank.dtype == torch.bfloat16),
-            inv.data_ptr(), n, D, q.data_ptr(), B, k, split_rows, S,
-            part_v.data_ptr(), part_i.data_ptr(), out_v.data_ptr(),
-            out_i.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"tile_scan launch failed: cudaError {rc}")
+    _check_aligned("tile scan", bank=bank, queries=q, inv_norms=inv)
+    out = _launch("tile_scan", B, k, D, n, bank, (inv.data_ptr(), n, D), q,
+                  stats)
     tile_scan_launches += 1
-    return _scale(out_v, q), out_i.long()
+    return out
 
 
 def cosine_topk_scan(bank: torch.Tensor, n: int, queries: torch.Tensor,

@@ -72,3 +72,47 @@ def test_tile_scan_matches_plain_version_on_card(dtype):
             assert gi[:, n:].eq(0).all() and gv[:, n:].isneginf().all()
     gv, gi = nns.cosine_topk_fused(b, inv, 19000, q, 10)
     assert gi[4, :2].tolist() == [10, 9000]
+
+
+def _adversarial(case, rng, N=3000, D=64):
+    """Rows that stress the tensor-core screen: near-ties (one base row plus
+    1e-7-scale noise: hundreds of rows within eps of the k-th) or identical
+    rows (every row survives the screen, the worst case)."""
+    base = rng.standard_normal(D)
+    if case == "near_ties":
+        rows = base + 1e-7 * rng.standard_normal((N, D))
+    else:
+        rows = np.tile(base, (N, 1))
+    return torch.from_numpy(rows.astype(np.float32)).cuda(), base
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["bank_scan", "tile_scan"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["near_ties", "identical_rows"])
+@pytest.mark.parametrize("B", [1, 8, 16, 40])
+def test_screen_adversarial_cases_match_plain_version_on_card(kernel, dtype,
+                                                              case, B):
+    """Both paths (B < 16: exact dots; B >= 16: tensor-core screen and exact
+    rescore) bit for bit against the plain version where the screen's error
+    bound matters most."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    rng = np.random.default_rng(3)
+    bank, base = _adversarial(case, rng)
+    q = torch.from_numpy(rng.standard_normal((B, 64)).astype(
+        np.float32)).cuda()
+    q[0] = torch.from_numpy(base.astype(np.float32)).cuda()
+    b = bank.to(dtype)
+    n = 2900
+    if kernel == "bank_scan":
+        got = nns.cosine_topk_scan(b, n, q, 10)
+        want = nns.cosine_topk_scan_ref(b, n, q, 10)
+    else:
+        inv = 1.0 / bank.norm(dim=1)
+        got = nns.cosine_topk_fused(b, inv, n, q, 10)
+        want = nns.cosine_topk_fused_ref(b, inv, n, q, 10)
+    assert torch.equal(got[1], want[1])
+    assert torch.equal(got[0], want[0])
+    if case == "identical_rows":   # ties go to the lowest rows
+        assert got[1][0].tolist() == list(range(10))
