@@ -20,6 +20,20 @@ Builds the hand-written kernels from the sources in the checkout (one
   120 keyframes (480 poses, the largest swarm on the dense MAC and PGO
   tiers), plus a two-robot run on CUDA held against the same run on the CPU
   (the plain versions);
+* phase ``swarm_floored`` — the same mission with the tiers pinned as
+  deployments pin them (``frontend.mac_p_floor`` and
+  ``backend.pgo_np_floor`` at 1024), so every selection runs MAC's
+  Woodbury/LOBPCG tier and every optimization PGO's coarse-corrected PCG
+  tier, with LOBPCG, LM and CG iterations and host reads counted;
+* phase ``large_tiers`` — MAC at ``benchmarks/selection_bench.py``'s three
+  tiers (5 x 100 poses / 100 candidates, 10 x 200 / 400, 10 x 500 / 1000:
+  P = 512, 2048, 8192) through the port's ACM, lambda_2 of each selection
+  held against scipy, the P = 2048 selection against the same on the CPU;
+  GNC-TLS cold and warm on ``benchmarks/graphs``' 8 x 256 and 8 x 512
+  graphs (both outliers rejected, ATE within 0.05 m of the reference's
+  ``*_optimized.g2o``); LM on a 2 x 288 graph on CUDA against the CPU;
+  last, ``torch.profiler`` device times of one MAC evaluation at P = 8192
+  and one LM step at 4096 nodes;
 * phase ``frontend`` — the visual front end's flagship step: CosPlace
   ResNet18 + GeM (fc 64, the seeded golden weights) from
   ``make_global_descriptor`` embeds seeded 480 x 640 keyframes (crop 376 ->
@@ -562,6 +576,426 @@ def phase_frontend(results, failures):
     results["frontend"] = out
 
 
+class _Counters:
+    """Counts, while it is entered, what the solvers do: LOBPCG calls and
+    iterations, chain + low-rank evaluations, LM solves and iterations
+    (and the padded node count of each), PCG solves and CG iterations
+    (one matvec each), and host reads of CUDA tensors (``bool``,
+    ``float``, ``int``, ``item``, ``tolist``, ``cpu`` and waits on CUDA
+    events). It wraps the functions from here, leaving the package as it
+    is, and restores them on exit."""
+
+    def __enter__(self):
+        import torch
+
+        from cslam_tpu_torch.ops import fiedler
+        from cslam_tpu_torch.pgo import solver
+        self.lobpcg_calls = self.lobpcg_iters = self.evaluations = 0
+        self.lm_calls = self.lm_iters = self.pcg_solves = self.cg_iters = 0
+        self.host_reads = 0
+        self.lm_nodes = []
+        self._saved = []
+
+        def patch(owner, name, make):
+            orig = getattr(owner, name)
+            self._saved.append((owner, name, orig))
+            setattr(owner, name, make(orig))
+
+        def lobpcg(orig):
+            def run(*args, **kwargs):
+                theta, V, iters = orig(*args, **kwargs)
+                self.lobpcg_calls += 1
+                self.lobpcg_iters += iters
+                return theta, V, iters
+            return run
+
+        def evaluation(orig):
+            def run(*args, **kwargs):
+                self.evaluations += 1
+                return orig(*args, **kwargs)
+            return run
+
+        def lm(orig):
+            def run(g, *args, **kwargs):
+                res = orig(g, *args, **kwargs)
+                self.lm_calls += 1
+                self.lm_iters += int(res.iterations)
+                self.lm_nodes.append(g.num_nodes)
+                return res
+            return run
+
+        def pcg(orig):
+            def run(*args, **kwargs):
+                self.pcg_solves += 1
+                return orig(*args, **kwargs)
+            return run
+
+        def make_matvec(orig):
+            def make(*args, **kwargs):
+                matvec = orig(*args, **kwargs)
+
+                def counted(x):
+                    self.cg_iters += 1
+                    return matvec(x)
+                return counted
+            return make
+
+        def read(orig):
+            def run(t, *args, **kwargs):
+                if t.is_cuda:
+                    self.host_reads += 1
+                return orig(t, *args, **kwargs)
+            return run
+
+        def wait(orig):
+            def run(*args, **kwargs):
+                self.host_reads += 1
+                return orig(*args, **kwargs)
+            return run
+
+        patch(fiedler, "lobpcg_standard", lobpcg)
+        patch(fiedler, "fiedler_pair_chain_lowrank", evaluation)
+        patch(solver, "lm_optimize", lm)
+        patch(solver, "_pcg", pcg)
+        patch(solver, "_make_matvec", make_matvec)
+        for name in ("__bool__", "__float__", "__int__", "item", "tolist",
+                     "cpu"):
+            patch(torch.Tensor, name, read)
+        patch(torch.cuda.Event, "synchronize", wait)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, orig in reversed(self._saved):
+            setattr(owner, name, orig)
+        return False
+
+    def summary(self) -> dict:
+        return {"lobpcg_calls": self.lobpcg_calls,
+                "lobpcg_iters": self.lobpcg_iters,
+                "evaluations": self.evaluations,
+                "lm_calls": self.lm_calls, "lm_iters": self.lm_iters,
+                "pcg_solves": self.pcg_solves, "cg_iters": self.cg_iters,
+                "host_reads": self.host_reads}
+
+
+def _build_acm(nb_robots, nb_poses, nb_candidates, nb_fixed, rng, device):
+    """``benchmarks/selection_bench.py``'s ACM (config-default MAC kwargs):
+    one full-range fixed edge per robot pair pins the pose counts, then
+    ``nb_fixed`` random fixed edges and ``nb_candidates`` random candidates
+    between consecutive robots."""
+    from cslam_tpu_torch.selection.acm import \
+        AlgebraicConnectivityMaximization
+    from cslam_tpu_torch.types import EdgeInterRobot
+    acm = AlgebraicConnectivityMaximization(
+        robot_id=0, max_nb_robots=nb_robots, device=device)
+    for r0 in range(nb_robots - 1):
+        acm.add_fixed_edge(EdgeInterRobot(
+            r0, nb_poses - 1, r0 + 1, nb_poses - 1,
+            float(rng.uniform(0.5, 1.0))))
+    for _ in range(nb_fixed):
+        r0 = int(rng.integers(0, nb_robots - 1))
+        acm.add_fixed_edge(EdgeInterRobot(
+            r0, int(rng.integers(0, nb_poses)), r0 + 1,
+            int(rng.integers(0, nb_poses)), float(rng.uniform(0.5, 1.0))))
+    for _ in range(nb_candidates):
+        r0 = int(rng.integers(0, nb_robots - 1))
+        acm.add_candidate_edge(EdgeInterRobot(
+            r0, int(rng.integers(0, nb_poses)), r0 + 1,
+            int(rng.integers(0, nb_poses)), float(rng.uniform(0.1, 1.0))))
+    return acm
+
+
+def _recorded_selection(acm, robots):
+    """``select_candidates(5, in_range)`` on ``acm``, returning the selected
+    edges and the MAC's own view of the round: the MAC, its fixed and
+    candidate edges and the rounded selection."""
+    seen = {}
+    dispatch, finish = acm.run_mac_solver_dispatch, acm.run_mac_solver_finish
+
+    def record_dispatch(fixed, cands, *args, **kwargs):
+        seen.update(fixed=list(fixed), cands=list(cands))
+        seen["mac"], pending = dispatch(fixed, cands, *args, **kwargs)
+        return seen["mac"], pending
+
+    def record_finish(*args, **kwargs):
+        seen["rounded"] = finish(*args, **kwargs)
+        return seen["rounded"]
+    acm.run_mac_solver_dispatch = record_dispatch
+    acm.run_mac_solver_finish = record_finish
+    try:
+        sel = acm.select_candidates(5, {r: True for r in range(robots)})
+    finally:
+        del acm.run_mac_solver_dispatch, acm.run_mac_solver_finish
+    return sel, seen
+
+
+def _scipy_lambda2(n, edges):
+    """lambda_2 of the weighted graph on ``n`` nodes by scipy's shift-invert
+    sparse eigensolver (as ``tests/test_fiedler.py`` computes it)."""
+    import numpy as np
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spla
+    i = [e.i for e in edges]
+    j = [e.j for e in edges]
+    w = [e.weight for e in edges]
+    A = sp.coo_matrix((w + w, (i + j, j + i)), shape=(n, n)).tocsr()
+    L = sp.diags(np.asarray(A.sum(1)).ravel()) - A
+    vals = spla.eigsh(L.tocsc(), k=2, sigma=-1e-4, which="LM",
+                      return_eigenvectors=False)
+    return float(np.sort(vals)[1])
+
+
+def _large_tiers_mac(failures, repeats=5):
+    """``benchmarks/selection_bench.py``'s tiers through the port's ACM on
+    the card: a warm selection (checked: size, lambda_2 against scipy, and
+    at P = 2048 the same selection on the CPU), then ``repeats`` fresh
+    builds and ``repeats`` steady rounds (20 new candidates before each).
+    Returns the records and the last tier's MAC with its rounded
+    selection."""
+    import numpy as np
+    import torch
+
+    from cslam_tpu_torch.types import EdgeInterRobot
+    rng = np.random.default_rng(0)
+    out = []
+    for R, Np, C in ((5, 100, 100), (10, 200, 400), (10, 500, 1000)):
+        state = rng.bit_generator.state
+        acm = _build_acm(R, Np, C, R, rng, "cuda")
+        sel, seen = _recorded_selection(acm, R)
+        mac = seen["mac"]
+        rec = {"robots": R, "poses": R * Np, "candidates": C,
+               "P": mac._P, "E": mac._E,
+               "tier": "dense" if mac._dense else "woodbury",
+               "selected": len(sel), "fw_iters": acm.last_fw_iters}
+        if not 0 < len(sel) <= 5 + R:
+            failures.append(f"large_tiers MAC {R}x{Np}: {len(sel)} selected")
+        chosen = [e for e, r in zip(seen["cands"], seen["rounded"]) if r]
+        rec["lambda2"] = mac.evaluate_objective(seen["rounded"])
+        rec["lambda2_scipy"] = _scipy_lambda2(mac.num_poses,
+                                              seen["fixed"] + chosen)
+        rel = abs(rec["lambda2"] / rec["lambda2_scipy"] - 1.0)
+        rec["lambda2_rel_err"] = rel
+        if not rel <= 0.02:
+            failures.append(f"large_tiers MAC {R}x{Np}: lambda_2 "
+                            f"{rec['lambda2']} vs scipy "
+                            f"{rec['lambda2_scipy']}")
+        if mac._P == 2048:
+            cpu_rng = np.random.default_rng()
+            cpu_rng.bit_generator.state = state
+            cpu_acm = _build_acm(R, Np, C, R, cpu_rng, "cpu")
+            cpu_sel = cpu_acm.select_candidates(
+                5, {r: True for r in range(R)})
+            rec["same_as_cpu"] = ([e.key() for e in sel]
+                                  == [e.key() for e in cpu_sel])
+            if not rec["same_as_cpu"]:
+                failures.append(f"large_tiers MAC {R}x{Np}: CUDA and CPU "
+                                "selections differ")
+
+        times = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(repeats):
+            acm2 = _build_acm(R, Np, C, R, rng, "cuda")
+            with _Counters() as count:
+                t0 = time.perf_counter()
+                acm2.select_candidates(5, {r: True for r in range(R)})
+                times.append(time.perf_counter() - t0)
+        last = count.summary()     # the last fresh solve's counts
+        rec["peak_device_mb"] = torch.cuda.max_memory_allocated() / 2**20
+        steady = []
+        for _ in range(repeats):
+            for _k in range(20):
+                r0 = int(rng.integers(0, R - 1))
+                acm2.add_candidate_edge(EdgeInterRobot(
+                    r0, int(rng.integers(0, Np)), r0 + 1,
+                    int(rng.integers(0, Np)), float(rng.uniform(0.1, 1.0))))
+            t0 = time.perf_counter()
+            acm2.select_candidates(5, {r: True for r in range(R)})
+            steady.append(time.perf_counter() - t0)
+        rec.update(
+            fresh_median_ms=float(np.median(times)) * 1e3,
+            fresh_ms=[t * 1e3 for t in times],
+            steady_median_ms=float(np.median(steady)) * 1e3,
+            steady_fw_iters=acm2.last_fw_iters,
+            lobpcg_iters_per_evaluation=(
+                last["lobpcg_iters"] / last["evaluations"]
+                if last["evaluations"] else None),
+            evaluations_per_solve=last["evaluations"],
+            host_reads_per_solve=last["host_reads"])
+        print("  MAC " + json.dumps(rec))
+        out.append(rec)
+    return out, (mac, seen["rounded"])
+
+
+def _g2o_graph(path):
+    """A ``benchmarks/graphs`` init graph rebuilt as
+    ``benchmarks/pgo_bench.py`` built it: same-robot edges plain,
+    inter-robot edges robust (the last two are the injected outliers), one
+    prior on (0, 0) at its init pose (the ground truth there). Returns
+    (graph, arrays on the card)."""
+    from cslam_tpu_torch.evaluation.g2o import read_g2o
+    from cslam_tpu_torch.pgo import FactorGraph
+    values, edges = read_g2o(path)
+    g = FactorGraph()
+    for key, pose in values.items():
+        g.add_variable(key, pose)
+    for e in edges:
+        a, b = e.key_from.as_tuple(), e.key_to.as_tuple()
+        g.add_between(a, b, e.measurement, e.noise_sigmas,
+                      robust=a[0] != b[0])
+    g.add_prior((0, 0), values[(0, 0)], edges[0].noise_sigmas)
+    return g, g.to_arrays(device="cuda")
+
+
+def _ate(est, gt):
+    import numpy as np
+    return float(np.sqrt(np.mean([np.sum((est[k][:3, 3] - gt[k][:3, 3]) ** 2)
+                                  for k in gt])))
+
+
+def _large_tiers_pgo(failures):
+    """GNC cold (``gnc_optimize``) and warm (``gnc_reoptimize`` from the
+    cold solution, translations scaled by 1 + 1e-6, carrying its weights)
+    on ``benchmarks/graphs``' 8 x 256 and 8 x 512 graphs on the card.
+    Checked: both outliers rejected, ATE against ``*_gt.g2o`` within 0.05 m
+    of the reference's ``*_optimized.g2o``. Returns the records and the
+    last graph's arrays with its cold weights."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from cslam_tpu_torch.evaluation.g2o import read_g2o
+    from cslam_tpu_torch.pgo import solver
+    out = []
+    for name in ("pgo_8x256", "pgo_8x512"):
+        base = f"benchmarks/graphs/{name}"
+        g, arrays = _g2o_graph(f"{base}_init.g2o")
+        gt = read_g2o(f"{base}_gt.g2o")[0]
+        ref_ate = _ate(read_g2o(f"{base}_optimized.g2o")[0], gt)
+        robust = np.nonzero((arrays.robust * arrays.edge_valid).cpu().numpy()
+                            > 0)[0]
+        rec = {"graph": name, "nodes": len(g), "padded_nodes":
+               arrays.num_nodes, "genuine_loops": len(robust) - 2,
+               "reference_optimized_ate_m": ref_ate,
+               "init_ate_m": _ate({v.key.as_tuple(): v.pose for v in
+                                   g.values_from_arrays(arrays.poses)}, gt)}
+        runs = {}
+        for phase in ("cold", "warm"):
+            with _Counters() as count:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if phase == "cold":
+                    res = solver.gnc_optimize(arrays)
+                else:
+                    poses = runs["cold"].poses.clone()
+                    poses[:, :3, 3] *= 1.0 + 1e-6
+                    res = solver.gnc_reoptimize(
+                        dataclasses.replace(arrays, poses=poses),
+                        runs["cold"].weights)
+                res.poses.cpu()
+                seconds = time.perf_counter() - t0
+            runs[phase] = res
+            c = count.summary()
+            w = res.weights.cpu().numpy()[robust]
+            est = {v.key.as_tuple(): v.pose
+                   for v in g.values_from_arrays(res.poses)}
+            rec[phase] = {
+                "seconds": seconds, "ate_m": _ate(est, gt),
+                "outliers_rejected": int((w[-2:] < 0.5).sum()),
+                "loops_false_rejected": int((w[:-2] < 0.5).sum()),
+                "lm_solves": c["lm_calls"], "lm_iters": c["lm_iters"],
+                "cg_iters_per_lm_step": (c["cg_iters"] / c["pcg_solves"]
+                                         if c["pcg_solves"] else None),
+                "host_reads": c["host_reads"], **c}
+            if rec[phase]["outliers_rejected"] != 2:
+                failures.append(f"large_tiers {name} {phase}: "
+                                f"{rec[phase]['outliers_rejected']} of 2 "
+                                "outliers rejected")
+            if not rec[phase]["ate_m"] <= ref_ate + 0.05:
+                failures.append(f"large_tiers {name} {phase}: ATE "
+                                f"{rec[phase]['ate_m']} > reference "
+                                f"{ref_ate} + 0.05")
+        print("  PGO " + json.dumps(rec))
+        out.append(rec)
+    return out, (arrays, runs["cold"].weights)
+
+
+def _two_by_288(device, seed=7, n=288):
+    """``tests/test_pgo.py``'s 2 x 288 construction (ground-truth init, low
+    noise, a loop every 16 keyframes) as arrays on ``device``."""
+    import numpy as np
+    import torch
+
+    from cslam_tpu_torch.ops import se3
+    from cslam_tpu_torch.pgo import FactorGraph
+    rng = np.random.default_rng(seed)
+    sig = np.array([0.01] * 3 + [0.1] * 3)
+
+    def circle(k, radius):
+        a = 2 * np.pi * k / n
+        T = np.eye(4)
+        T[:3, :3] = [[np.cos(a), -np.sin(a), 0], [np.sin(a), np.cos(a), 0],
+                     [0, 0, 1]]
+        T[:3, 3] = [radius * np.cos(a), radius * np.sin(a), 0.0]
+        return T
+
+    def noisy(Ta, Tb):
+        xi = np.concatenate([rng.normal(scale=0.002, size=3),
+                             rng.normal(scale=0.02, size=3)])
+        return np.linalg.inv(Ta) @ Tb @ se3.exp(
+            torch.as_tensor(xi, dtype=torch.float64)).numpy()
+
+    g = FactorGraph()
+    gt = {(r, k): circle(k, 10.0 + r) for r in (0, 1) for k in range(n)}
+    for key, T in gt.items():
+        g.add_variable(key, T)
+    for r in (0, 1):
+        for k in range(n - 1):
+            g.add_between((r, k), (r, k + 1),
+                          noisy(gt[(r, k)], gt[(r, k + 1)]), sig)
+    for k in range(0, n, 16):
+        g.add_between((0, k), (1, k), noisy(gt[(0, k)], gt[(1, k)]), sig,
+                      robust=True)
+    g.add_prior((0, 0), gt[(0, 0)], sig)
+    return g.to_arrays(device=device)
+
+
+def phase_large_tiers(results, failures):
+    """MAC at ``benchmarks/selection_bench.py``'s three tiers (P = 512,
+    2048, 8192) and GNC-TLS on ``benchmarks/graphs``' 8 x 256 and 8 x 512
+    graphs, all on the card; LM on a 2 x 288 graph on the card against the
+    same solve on the CPU."""
+    import numpy as np
+    import torch
+
+    from cslam_tpu_torch.pgo import solver
+    out = results["large_tiers"] = {}
+    out["mac"], (mac, rounded) = _large_tiers_mac(failures)
+    out["pgo"], (arrays_pgo, weights) = _large_tiers_pgo(failures)
+    res = {}
+    for device in ("cuda", "cpu"):
+        arrays = _two_by_288(device)
+        res[device] = solver.lm_optimize(arrays, torch.ones(
+            arrays.num_edges, device=device), max_iters=15)
+    err = float(np.abs(res["cuda"].poses.cpu().numpy()[:576]
+                       - res["cpu"].poses.numpy()[:576]).max())
+    out["lm_2x288_cuda_vs_cpu_max_abs_err"] = err
+    print(f"  LM 2x288 (1024-node tier) CUDA vs CPU: max |pose diff| {err}")
+    if not err <= 2e-3:
+        failures.append(f"large_tiers LM 2x288: CUDA vs CPU {err} > 2e-3")
+
+    # device-time breakdowns last: the profiler may slow what runs after it
+    out["mac_evaluation_profile"] = _device_profile(
+        lambda: mac.evaluate_objective(rounded), 3)
+    print(f"  one MAC evaluation at P = {mac._P} profile: "
+          + json.dumps(out["mac_evaluation_profile"]))
+    out["lm_step_profile"] = _device_profile(
+        lambda: solver.lm_optimize(arrays_pgo, weights, max_iters=1), 3)
+    print(f"  one LM step at {arrays_pgo.num_nodes} nodes profile: "
+          + json.dumps(out["lm_step_profile"]))
+
+
 def _two_robot_sim(device, nb_keyframes=30):
     from cslam_tpu_torch.runtime.simulator import (SwarmSimulator,
                                                    SyntheticWorld,
@@ -585,7 +1019,11 @@ def _fixed(sim, rid=0):
                   sim.robots[rid].detection.lcm.candidate_selector.fixed_edges)
 
 
-def phase_swarm(results, failures, robots=4, keyframes=120):
+def _swarm_run(name, failures, robots, keyframes, floors=None):
+    """One simulated mission of ``robots`` x ``keyframes`` on the card (the
+    main path), with ``floors`` added to its config; checks robot 0's ATE
+    and fixed inter-robot edges and the bank scan's launches. Returns
+    (wall seconds, K1 launches, spans, per-robot records)."""
     import torch
 
     from cslam_tpu_torch.ops import nns
@@ -600,8 +1038,8 @@ def phase_swarm(results, failures, robots=4, keyframes=120):
     sim = SwarmSimulator(robots, world, trajs, config_overrides={
         "frontend.inter_robot_detection_period_sec": 3.0,
         "frontend.inter_robot_loop_closure_budget": 5,
-        "backend.pose_graph_optimization_start_period_ms": 2000},
-        keyframe_period=0.5, device="cuda")
+        "backend.pose_graph_optimization_start_period_ms": 2000,
+        **(floors or {})}, keyframe_period=0.5, device="cuda")
     torch.cuda.synchronize()
     profiling.reset_spans()
     nns.launches = 0
@@ -611,6 +1049,7 @@ def phase_swarm(results, failures, robots=4, keyframes=120):
     wall = time.perf_counter() - t0
     launches = nns.launches
     print(profiling.report())
+    spans = profiling.spans()
     per_robot = []
     for rid, robot in enumerate(sim.robots):
         odo, opt = sim.ate(rid)
@@ -623,17 +1062,23 @@ def phase_swarm(results, failures, robots=4, keyframes=120):
             "optimizations": robot.backend.optimization_count,
             "ate_odom": odo, "ate_opt": opt})
     r0 = per_robot[0]
-    print(f"  swarm {robots}x{keyframes}: {wall:.1f} s wall, "
+    print(f"  {name} {robots}x{keyframes}: {wall:.1f} s wall, "
           f"{launches} bank-scan launches")
     for rec in per_robot:
         print("  " + json.dumps(rec))
     if launches < 1:
-        failures.append("swarm: bank-scan kernel not launched")
+        failures.append(f"{name}: bank-scan kernel not launched")
     if r0["fixed_edges"] < 1:
-        failures.append("swarm: no fixed inter-robot edges")
+        failures.append(f"{name}: no fixed inter-robot edges")
     if not r0["ate_opt"] <= r0["ate_odom"] + 0.05:
-        failures.append(f"swarm: optimized ATE {r0['ate_opt']} > odometry "
+        failures.append(f"{name}: optimized ATE {r0['ate_opt']} > odometry "
                         f"ATE {r0['ate_odom']} + 0.05")
+    return wall, launches, spans, per_robot
+
+
+def phase_swarm(results, failures, robots=4, keyframes=120):
+    wall, launches, spans, per_robot = _swarm_run("swarm", failures, robots,
+                                                  keyframes)
 
     # small input held against the plain versions on the CPU
     cuda_sim, cpu_sim = _two_robot_sim("cuda"), _two_robot_sim("cpu")
@@ -646,14 +1091,40 @@ def phase_swarm(results, failures, robots=4, keyframes=120):
     if not abs(ate_cuda - ate_cpu) <= 1e-3:
         failures.append(f"two-robot sim: ATE {ate_cuda} vs {ate_cpu}")
     results["swarm"] = {"launches": launches, "wall_s": wall,
-                        "robots": per_robot}
+                        "spans": spans, "robots": per_robot}
+
+
+def phase_swarm_floored(results, failures, robots=4, keyframes=120):
+    """The swarm mission with the tiers pinned as deployments pin them
+    (``frontend.mac_p_floor`` and ``backend.pgo_np_floor`` at 1024): every
+    selection runs the Woodbury/LOBPCG MAC tier, every optimization the
+    coarse-corrected PCG tier, on the card."""
+    from cslam_tpu_torch.pgo import solver
+    from cslam_tpu_torch.selection import mac
+    with _Counters() as count:
+        wall, launches, spans, per_robot = _swarm_run(
+            "swarm_floored", failures, robots, keyframes,
+            {"frontend.mac_p_floor": 1024, "backend.pgo_np_floor": 1024})
+    tiers = sorted(mac._SEEN_TIERS)
+    print(f"  MAC tiers seen {tiers}; " + json.dumps(count.summary()))
+    if not any(p == 1024 and mf > 0 for p, _, mf in tiers):
+        failures.append("swarm_floored: no MAC solve on the Woodbury tier")
+    if count.pcg_solves < 1:
+        failures.append("swarm_floored: no PGO solve on the PCG tier")
+    if not all(n > solver._DENSE_SOLVE_MAX_NODES for n in count.lm_nodes):
+        failures.append("swarm_floored: a PGO solve on the dense tier")
+    results["swarm_floored"] = {"launches": launches, "wall_s": wall,
+                                "spans": spans, "robots": per_robot,
+                                **count.summary()}
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phases", default="bank_scan,swarm,frontend",
-                        help="comma-separated subset of "
-                             "bank_scan,swarm,frontend")
+    parser.add_argument(
+        "--phases",
+        default="bank_scan,swarm,swarm_floored,large_tiers,frontend",
+        help="comma-separated subset of bank_scan,swarm,swarm_floored,"
+             "large_tiers,frontend")
     args = parser.parse_args()
     phases = args.phases.split(",")
 
@@ -679,13 +1150,16 @@ def main() -> int:
     results, failures = {}, []
     for phase in phases:
         print(f"phase {phase}")
+        t_phase = time.perf_counter()
         try:
             {"bank_scan": phase_bank_scan, "frontend": phase_frontend,
-             "swarm": phase_swarm}[phase](results, failures)
+             "swarm": phase_swarm, "swarm_floored": phase_swarm_floored,
+             "large_tiers": phase_large_tiers}[phase](results, failures)
         except Exception as exc:  # noqa: BLE001 - report, then fail the run
             import traceback
             traceback.print_exc()
             failures.append(f"{phase}: {type(exc).__name__}: {exc}")
+        print(f"phase {phase}: {time.perf_counter() - t_phase:.1f} s")
 
     card = _card_line()
     print(card)

@@ -1,9 +1,19 @@
-"""Fiedler (algebraic-connectivity) eigensolver, dense tier.
+"""Fiedler (algebraic-connectivity) eigensolvers.
 
-Counterpart of the dense tier of ``cslam_tpu/ops/fiedler.py`` (which
-replaces the reference's networkx ``tracemin_lu``, ``cslam/mac/mac.py:35-59``):
-one symmetric eigendecomposition (``torch.linalg.eigh``) over a padded
-Laplacian with a deflation shift.
+Counterpart of ``cslam_tpu/ops/fiedler.py`` (which replaces the reference's
+networkx ``tracemin_lu``, ``cslam/mac/mac.py:35-59``), with its two tiers:
+
+1. **Dense tier** (small graphs): one symmetric eigendecomposition
+   (``torch.linalg.eigh``) over a padded Laplacian with a deflation shift.
+2. **Chain + low-rank tier** (large graphs): odometry chains (tridiagonal)
+   plus sparse loop closures (low rank), inverted exactly by Woodbury,
+
+       B^-1 x = t - Y S^-1 U^T t   (t = T~^-1 x, Y = T~^-1 U,
+                                    S = C^-1 + U^T Y),
+
+   and LOBPCG (:mod:`cslam_tpu_torch.ops.lobpcg`) on ``B^-1``, whose
+   leading eigenvalues are well separated where the Laplacian's smallest
+   are clustered.
 
 Padding + deflation: graphs are embedded in a tier size ``P`` with an
 ``active`` mask; padded nodes get a large diagonal shift ``sigma`` and the
@@ -11,15 +21,16 @@ trivial constant eigenvector is deflated by ``sigma * u u^T`` with
 ``u = active/sqrt(p)`` (valid since ``L @ 1 = 0``). With
 ``sigma > lambda_max(L)`` the smallest eigenvalue of the shifted matrix is
 exactly ``lambda_2(L)``; a disconnected graph gives ``lambda_2 = 0``.
-
-The chain + low-rank (Woodbury shift-invert + LOBPCG) tier that serves
-graphs above 512 poses is not ported yet (ROADMAP.md item 16).
 """
 from __future__ import annotations
 
 import torch
 
 from cslam_tpu_torch.ops import highest_precision
+from cslam_tpu_torch.ops.lobpcg import lobpcg_standard
+
+_EPS_SHIFT = 1e-5   # epsilon ridge on the whole spectrum (subtracted exactly)
+_BIG_CINV = 1e12    # 1/weight stand-in for absent (zero-weight) edges
 
 
 def laplacian_from_edges(idx_i: torch.Tensor, idx_j: torch.Tensor,
@@ -70,3 +81,132 @@ def algebraic_connectivity(idx_i: torch.Tensor, idx_j: torch.Tensor,
     """Convenience: lambda_2 of the graph given by weighted edge lists."""
     L = laplacian_from_edges(idx_i, idx_j, weights, active.shape[0])
     return fiedler_pair(L, active)[0]
+
+
+# ---------------------------------------------------------------------------
+# Chain + low-rank tier (Woodbury shift-invert)
+# ---------------------------------------------------------------------------
+
+
+@highest_precision
+def chain_lowrank_precompute(chain_w: torch.Tensor, lr_i: torch.Tensor,
+                             lr_j: torch.Tensor, active: torch.Tensor,
+                             sigma: float) -> dict:
+    """Weight-independent factor setup for the Woodbury solver.
+
+    Args:
+        chain_w: ``[P-1]`` weights of the consecutive-node (odometry) edges,
+            0 where no chain edge exists (robot boundaries, padding).
+        lr_i, lr_j: ``[M]`` endpoints of the non-chain (loop-closure) edges;
+            padding entries point at node 0.
+        active: ``[P]`` 0/1 mask of real nodes.
+        sigma: spectral shift (> lambda_max) for padding and deflation.
+
+    Returns the dense ``Tinv = T~^-1`` ``[P, P]``, the column block ``U``
+    ``[P, M+1]`` (edge incidences and the deflation vector), ``Y = Tinv U``
+    and ``G = U^T Y``; they stay fixed while the Frank-Wolfe loop changes
+    the candidate weights.
+
+    ``T~`` (chain Laplacian + 1e-5 I + sigma on padded nodes) is inverted
+    by a float64 Cholesky: each robot's chain keeps an eigenvalue near 1e-5
+    against a largest near 4, a condition number of 1e5-1e6 that a float32
+    factorization would pay in digits. The JAX package takes the same
+    inverse from a tridiagonal solve against the identity, which torch
+    lacks. The inverse is symmetrized in float32 as there.
+    """
+    P = active.shape[0]
+    dev = active.device
+    # the diagonal is summed in float32 as the JAX package sums it (the
+    # 1e-5 ridge rounds differently per node, and the chains' constant
+    # modes, 1 / (ridge * nodes), feel it); the factorization is float64
+    cw = chain_w.float()
+    diag = torch.zeros(P, dtype=torch.float32, device=dev)
+    diag[:-1] += cw
+    diag[1:] += cw
+    diag = diag + _EPS_SHIFT + torch.tensor(
+        sigma, dtype=torch.float32, device=dev) * (1.0 - active.float())
+    T = torch.diag(diag.double())
+    off = torch.arange(P - 1, device=dev)
+    T[off, off + 1] = -cw.double()
+    T[off + 1, off] = -cw.double()
+    Tinv = torch.cholesky_inverse(torch.linalg.cholesky(T)).float()
+    Tinv = 0.5 * (Tinv + Tinv.T)
+
+    p = torch.clamp(torch.sum(active), min=1.0)
+    M = lr_i.shape[0]
+    cols = torch.arange(M, device=dev)
+    U = torch.zeros((P, M + 1), dtype=torch.float32, device=dev)
+    U.index_put_((lr_i, cols), torch.ones(M, device=dev), accumulate=True)
+    U.index_put_((lr_j, cols), -torch.ones(M, device=dev), accumulate=True)
+    U[:, M] = active.float() / torch.sqrt(p)
+    Y = Tinv @ U
+    G = U.T @ Y
+    return {"Tinv": Tinv, "U": U, "Y": Y, "G": G, "sigma": float(sigma)}
+
+
+def _start_block(P: int, block: int, active: torch.Tensor) -> torch.Tensor:
+    """The deterministic LOBPCG start block: standard normals from a
+    generator seeded with 7, drawn on the CPU (so every device starts from
+    the same block) and masked to the active nodes. The JAX package draws
+    ``jax.random.normal(PRNGKey(7), (P, block))``, which torch cannot
+    reproduce; parity tests substitute that draw here."""
+    gen = torch.Generator().manual_seed(7)
+    X = torch.randn((P, block), generator=gen, dtype=torch.float32)
+    return X.to(active.device) * active[:, None]
+
+
+@highest_precision
+def fiedler_pair_chain_lowrank(pre: dict, lr_w: torch.Tensor,
+                               active: torch.Tensor,
+                               lobpcg_iters: int = 48, block: int = 4,
+                               short_iters: int = 14,
+                               resid_tol: float = 1e-4,
+                               X0: torch.Tensor | None = None,
+                               return_block: bool = False):
+    """(lambda_2, Fiedler vector) via LOBPCG on the Woodbury-inverted
+    operator.
+
+    Two stages: ``short_iters`` iterations, then one extra apply measures
+    the leading Ritz pair's relative residual ``||B^-1 v - theta v|| /
+    theta``; only above ``resid_tol`` does LOBPCG continue from that block
+    for the rest of the ``lobpcg_iters`` budget (``short_iters >=
+    lobpcg_iters`` runs one stage). ``X0`` is an optional ``[P, block]``
+    warm start (the Frank-Wolfe loop's carried Ritz block); without it the
+    start is :func:`_start_block`. ``return_block`` also returns the Ritz
+    block. lambda_2 is returned shift-corrected from the leading Ritz
+    value; MAC takes its objective from a Rayleigh quotient over the edges
+    instead.
+    """
+    P = active.shape[0]
+    lr_w = lr_w.float()
+    cinv = torch.where(lr_w > 0, 1.0 / torch.clamp(lr_w, min=1e-30),
+                       torch.full_like(lr_w, _BIG_CINV))
+    cinv = torch.cat([cinv, cinv.new_full((1,), 1.0 / pre["sigma"])])
+    S = pre["G"] + torch.diag(cinv)
+    chol, info = torch.linalg.cholesky_ex(S)
+    # a failed factorization yields NaN, as the JAX package's cho_factor
+    # does, without a host read
+    chol = torch.where(info == 0, chol, torch.full_like(chol, float("nan")))
+    Tinv, U, Y = pre["Tinv"], pre["U"], pre["Y"]
+
+    def b_inverse(x):
+        t = Tinv @ x
+        return t - Y @ torch.cholesky_solve(U.T @ t, chol)
+
+    if X0 is None:
+        X0 = _start_block(P, block, active)
+    if short_iters >= lobpcg_iters:
+        theta, V, _ = lobpcg_standard(b_inverse, X0, m=lobpcg_iters)
+    else:
+        theta, V, _ = lobpcg_standard(b_inverse, X0, m=short_iters)
+        resid = torch.linalg.norm(b_inverse(V[:, :1]) - theta[0] * V[:, :1])
+        if bool(resid / torch.clamp(theta[0], min=1e-30) > resid_tol):
+            theta, V, _ = lobpcg_standard(b_inverse, V,
+                                          m=lobpcg_iters - short_iters)
+    v = V[:, 0] * active
+    v = v / torch.clamp(torch.linalg.norm(v), min=1e-30)
+    lam2 = torch.clamp(1.0 / torch.clamp(theta[0], min=1e-30) - _EPS_SHIFT,
+                       min=0.0)
+    if return_block:
+        return lam2, v, V
+    return lam2, v

@@ -2,22 +2,23 @@
 
 Counterpart of ``cslam_tpu/pgo/solver.py`` (the replacement for the
 reference's GTSAM ``GncOptimizer<GncParams<LevenbergMarquardtParams>>`` at
-``src/back_end/decentralized_pgo.cpp:796-856``), dense normal-equation
-tier only:
+``src/back_end/decentralized_pgo.cpp:796-856``):
 
 - residuals and exact analytic Jacobians batched over edges,
-- the ``[6Np, 6Np]`` normal equations assembled with ``index_put_`` /
-  ``index_add_`` scatter-adds (the JAX package used one-hot matmuls because
-  TPU scatters serialize) and solved by dense Cholesky,
+- up to 512 padded nodes, the ``[6Np, 6Np]`` normal equations assembled
+  with ``index_put_`` / ``index_add_`` scatter-adds (the JAX package used
+  one-hot matmuls because TPU scatters serialize) and solved by dense
+  Cholesky,
+- above 512 nodes, PCG on the implicit Hessian (applied edge-wise, never
+  formed), preconditioned by block-Jacobi plus a segment-rigid coarse
+  correction,
 - Levenberg-Marquardt damping with accept/reject,
 - GNC-TLS outer loop (Yang et al., arXiv:1909.08605) reweighting the edges
   flagged ``robust`` (loop closures); odometry and priors stay weight 1,
   with the Geman-McClure de-masking phase and the chordal restart.
 
 The JAX package's ``lax.while_loop`` / ``lax.cond`` become Python loops and
-``if``s on host scalars. Graphs padded above 512 nodes need the PCG tier
-with its segment-rigid coarse correction, which is not ported yet: they
-raise ``NotImplementedError`` (ROADMAP.md item 17).
+``if``s on host scalars.
 """
 from __future__ import annotations
 
@@ -29,8 +30,10 @@ import torch
 from cslam_tpu_torch.ops import cholesky_solve, highest_precision, se3
 from cslam_tpu_torch.pgo.factor_graph import PoseGraphArrays
 
-_DENSE_SOLVE_MAX_NODES = 512  # the dense Cholesky tier's limit
+_DENSE_SOLVE_MAX_NODES = 512  # below this, one Cholesky beats iterative PCG
 _DEMASK_IRLS_MAX = 4          # GM de-masking IRLS iteration cap
+_COARSE_SEG = 32    # nodes per segment of the two-level PCG coarse space
+_USE_COARSE = True  # the coarse correction in the PCG tier (A/B switch)
 
 
 # ---------------------------------------------------------------------------
@@ -141,6 +144,122 @@ def _dense_normal_solve(g, Ji, Jj, weights, lam, diag_h, grad, D_blocks):
 
 
 # ---------------------------------------------------------------------------
+# Implicit-Hessian PCG (graphs above _DENSE_SOLVE_MAX_NODES)
+# ---------------------------------------------------------------------------
+
+
+def _make_matvec(g, Ji, Jj, Jp, weights, lam, diag_h):
+    """x -> (H + lam*diag(H)) x with H applied edge-wise (never formed)."""
+    w = (weights * g.edge_valid)[:, None]
+    Np = g.poses.shape[0]
+
+    def matvec(x):
+        aw = (torch.einsum("eij,ej->ei", Ji, x[g.edge_i])
+              + torch.einsum("eij,ej->ei", Jj, x[g.edge_j])) * w
+        y = torch.zeros((Np, 6), dtype=x.dtype, device=x.device)
+        y.index_add_(0, g.edge_i, torch.einsum("eij,ei->ej", Ji, aw))
+        y.index_add_(0, g.edge_j, torch.einsum("eij,ei->ej", Jj, aw))
+        ap = torch.einsum("bij,bj->bi", Jp, x[g.prior_idx])
+        y.index_add_(0, g.prior_idx, torch.einsum("bij,bi->bj", Jp, ap))
+        y = y + lam * diag_h * x
+        # padded nodes stay at identity so PCG stays well-posed
+        return (y * g.node_valid[:, None]
+                + x * (1.0 - g.node_valid)[:, None])
+
+    return matvec
+
+
+def _coarse_correction(g, poses, Ji, Jj, Jp, weights, lam, diag_h):
+    """Two-level (segment-rigid) coarse correction for the PCG tier.
+
+    Block-Jacobi alone moves long-wavelength error one hop per CG
+    iteration. The coarse space holds one SE(3) *left* increment per
+    contiguous ``_COARSE_SEG``-node segment; with the right retraction
+    ``X -> X Exp(xi)`` that is ``xi_n = Ad(X_n^-1) eta`` per node, so the
+    prolongation is ``P[n] = Ad(X_n^-1)`` (zero on padded nodes). Edges
+    inside a segment are invariant under it, so the Galerkin operator
+    ``H_c = P^T (H + lam diag H) P`` couples segments only through crossing
+    edges and priors. Applied additively with block-Jacobi: ``z =
+    M_bj^-1 r + P H_c^-1 P^T r``.
+
+    ``H_c`` is summed block by block (``[S, S, 6, 6]``, ``index_put_``)
+    where the JAX package forms the coarse residual Jacobian with one-hot
+    matmuls. Returns ``apply(r) -> z_coarse``, ``H_c`` factored once.
+    """
+    Np = g.poses.shape[0]
+    S = max(1, Np // _COARSE_SEG)
+    dtype, dev = Ji.dtype, Ji.device
+    seg = torch.clamp(torch.arange(Np, device=dev) // _COARSE_SEG, max=S - 1)
+    A = se3.adjoint(se3.inverse(poses)) * g.node_valid[:, None, None]
+    si, sj, sp = seg[g.edge_i], seg[g.edge_j], seg[g.prior_idx]
+    Gi = Ji @ A[g.edge_i]
+    Gj = Jj @ A[g.edge_j]
+    w = (weights * g.edge_valid)[:, None, None]
+    Gp = Jp @ A[g.prior_idx]
+    Hc = torch.zeros((S, S, 6, 6), dtype=dtype, device=dev)
+    for a, Ga in ((si, Gi), (sj, Gj)):
+        for b, Gb in ((si, Gi), (sj, Gj)):
+            Hc.index_put_((a, b), Ga.transpose(1, 2) @ Gb * w,
+                          accumulate=True)
+    Hc.index_put_((sp, sp), Gp.transpose(1, 2) @ Gp, accumulate=True)
+    # damping P^T (lam diag H) P lands on the block diagonal
+    T = torch.einsum("nai,na,naj->nij", A, lam * diag_h, A)
+    Dc = torch.zeros((S, 6, 6), dtype=dtype, device=dev)
+    Dc.index_add_(0, seg, T)
+    segs = torch.arange(S, device=dev)
+    Hc[segs, segs] += Dc
+    Hc = Hc.permute(0, 2, 1, 3).reshape(S * 6, S * 6)
+    # ridge: keeps all-padded segments (zero rows) and near-singular coarse
+    # blocks factorable without biasing active ones
+    ridge = 1e-7 * torch.max(torch.diagonal(Hc)) + 1e-12
+    Hc = Hc + ridge * torch.eye(S * 6, dtype=dtype, device=dev)
+    chol, info = torch.linalg.cholesky_ex(Hc)
+    # NaN on a failed factorization, as cho_factor gives, without a read
+    chol = torch.where(info == 0, chol, torch.full_like(chol, float("nan")))
+
+    def apply(r):
+        c = torch.zeros((S, 6), dtype=r.dtype, device=r.device)
+        c.index_add_(0, seg, torch.einsum("nba,nb->na", A, r))
+        y = torch.cholesky_solve(c.reshape(S * 6, 1), chol).reshape(S, 6)
+        return torch.einsum("nab,nb->na", A, y[seg])
+
+    return apply
+
+
+def _pcg(matvec, b, M_inv_blocks, max_iters: int, tol: float,
+         coarse_apply=None):
+    """Preconditioned conjugate gradients on ``[Np, 6]`` unknowns. Stops
+    after ``max_iters`` or once ``||r|| <= tol * ||b||``, tested on the host
+    before every iteration as the JAX loop's condition tests it."""
+
+    def apply_prec(r):
+        z = torch.einsum("nij,nj->ni", M_inv_blocks, r)
+        if coarse_apply is not None:
+            z = z + coarse_apply(r)
+        return z
+
+    x = torch.zeros_like(b)
+    r = b
+    z = apply_prec(r)
+    p = z
+    rz = torch.sum(r * z)
+    b_norm = torch.clamp(torch.sqrt(torch.sum(b * b)), min=1e-30)
+    i = 0
+    while i < max_iters and bool(torch.sqrt(torch.sum(r * r))
+                                 > tol * b_norm):
+        Ap = matvec(p)
+        alpha = rz / torch.clamp(torch.sum(p * Ap), min=1e-30)
+        x = x + alpha * p
+        r = r - alpha * Ap
+        z = apply_prec(r)
+        rz_new = torch.sum(r * z)
+        p = z + rz_new / torch.clamp(rz, min=1e-30) * p
+        rz = rz_new
+        i += 1
+    return x
+
+
+# ---------------------------------------------------------------------------
 # Levenberg-Marquardt
 # ---------------------------------------------------------------------------
 
@@ -156,18 +275,13 @@ def lm_optimize(g: PoseGraphArrays, weights: torch.Tensor,
                 max_iters: int = 50, cg_iters: int = 150,
                 init_lambda: float = 1e-4, cg_tol: float = 1e-6,
                 rel_tol: float = 1e-7) -> LMResult:
-    """Levenberg-Marquardt on the dense normal equations.
+    """Levenberg-Marquardt: dense Cholesky steps up to
+    ``_DENSE_SOLVE_MAX_NODES`` padded nodes, coarse-corrected PCG steps
+    (at most ``cg_iters`` iterations to ``cg_tol``) above.
 
     ``weights`` are per-edge robust weights (1.0 = plain least squares).
-    ``cg_iters`` and ``cg_tol`` belong to the PCG tier (above 512 nodes) and
-    are accepted for API parity.
     """
-    if g.poses.shape[0] > _DENSE_SOLVE_MAX_NODES:
-        raise NotImplementedError(
-            f"pose graphs padded to {g.poses.shape[0]} > "
-            f"{_DENSE_SOLVE_MAX_NODES} nodes need the PCG tier with the "
-            "segment-rigid coarse correction, not ported yet "
-            "(ROADMAP.md item 17)")
+    dense = g.poses.shape[0] <= _DENSE_SOLVE_MAX_NODES
     poses = g.poses
     current_cost = cost(poses, g, weights)
     lam = torch.tensor(init_lambda, dtype=poses.dtype, device=poses.device)
@@ -178,8 +292,21 @@ def lm_optimize(g: PoseGraphArrays, weights: torch.Tensor,
         grad = _assemble_grad(g, Ji, Jj, Jp, r * w[:, None], rp)
         D = _hessian_blocks(g, Ji, Jj, Jp, weights)
         diag_h = torch.clamp(torch.diagonal(D, dim1=1, dim2=2), min=1e-8)
-        delta = _dense_normal_solve(g, Ji, Jj, weights, lam, diag_h, grad,
-                                    D)
+        if dense:
+            delta = _dense_normal_solve(g, Ji, Jj, weights, lam, diag_h,
+                                        grad, D)
+        else:
+            # inv_ex: no error check, so no host read (the damped blocks
+            # are positive definite)
+            M_inv = torch.linalg.inv_ex(
+                D + lam * diag_h[:, None]
+                * torch.eye(6, dtype=poses.dtype,
+                            device=poses.device)[None])[0]
+            matvec = _make_matvec(g, Ji, Jj, Jp, weights, lam, diag_h)
+            coarse = (_coarse_correction(g, poses, Ji, Jj, Jp, weights, lam,
+                                         diag_h)
+                      if _USE_COARSE else None)
+            delta = _pcg(matvec, -grad, M_inv, cg_iters, cg_tol, coarse)
         delta = delta * g.node_valid[:, None]
 
         candidate = se3.retract(poses, delta)

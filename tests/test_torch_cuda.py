@@ -1,5 +1,8 @@
 """Tests that need the CUDA device: the hand-written kernels (K1, the bank
-scan, and K2, the tile scan) against their plain PyTorch versions. They skip on a machine without a GPU.
+scan, and K2, the tile scan) against their plain PyTorch versions, and the
+large-graph solver tiers (MAC's Woodbury/LOBPCG tier, PGO's PCG tier) on
+the card against the same solves on the CPU. They skip on a machine
+without a GPU.
 
 This file imports neither JAX nor the JAX package, so it also runs where
 only PyTorch is installed; there the JAX-importing ``tests/conftest.py``
@@ -116,3 +119,69 @@ def test_screen_adversarial_cases_match_plain_version_on_card(kernel, dtype,
     assert torch.equal(got[0], want[0])
     if case == "identical_rows":   # ties go to the lowest rows
         assert got[1][0].tolist() == list(range(10))
+
+
+def _slam_mac_inputs(seed=3, robots=3, poses=200, loops=12, nb_cands=60):
+    """Three 200-pose odometry chains (a P = 1024 tier), verified loops
+    between them, and candidates with distinct weights."""
+    from cslam_tpu_torch.types import Edge
+    rng = np.random.default_rng(seed)
+    n = robots * poses
+    fixed = [Edge(r * poses + k, r * poses + k + 1, 1.0)
+             for r in range(robots) for k in range(poses - 1)]
+    for _ in range(loops):
+        r = int(rng.integers(0, robots - 1))
+        fixed.append(Edge(r * poses + int(rng.integers(0, poses)),
+                          (r + 1) * poses + int(rng.integers(0, poses)),
+                          float(rng.uniform(0.5, 1.0))))
+    cands, seen = [], set()
+    while len(cands) < nb_cands:
+        i, j = (int(x) for x in rng.integers(0, n, 2))
+        if abs(i - j) > 1 and (i, j) not in seen:
+            seen.add((i, j))
+            cands.append(Edge(i, j, float(rng.uniform(0.1, 1.0))))
+    return n, fixed, cands
+
+
+@pytest.mark.cuda
+def test_woodbury_mac_on_card_matches_cpu():
+    """The chain + low-rank MAC tier (P = 1024, config-default kwargs: warm
+    Ritz block, best rounding) on the card selects what it selects on the
+    CPU; lambda_2 within 1e-3 relative (float32 LOBPCG, cuBLAS/cuSOLVER
+    against LAPACK)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from cslam_tpu_torch.selection.mac import MAC, mac_kwargs_from_params
+    n, fixed, cands = _slam_mac_inputs()
+    kw = mac_kwargs_from_params({})
+    w0 = np.zeros(len(cands))
+    w0[:5] = 1.0
+    out = {}
+    for device in ("cuda", "cpu"):
+        mac = MAC(fixed, cands, n, device=device, **kw)
+        assert not mac._dense and mac._P == 1024
+        sel, _, dual = mac.fw_subset(w0, 5, max_iters=20)
+        out[device] = (sel, mac.evaluate_objective(sel), dual)
+    np.testing.assert_array_equal(out["cuda"][0], out["cpu"][0])
+    assert out["cuda"][1] == pytest.approx(out["cpu"][1], rel=1e-3)
+    assert out["cuda"][2] == pytest.approx(out["cpu"][2], rel=1e-3)
+
+
+@pytest.mark.cuda
+def test_pcg_lm_optimize_on_card_matches_cpu():
+    """LM on the PCG tier (two 288-pose robots, a 1024-node tier, the
+    graph ``chip_smoke.py`` builds) on the card against the same solve on
+    the CPU: poses within 2e-3 (float32 PCG, reductions in another
+    order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from chip_smoke import _two_by_288
+    from cslam_tpu_torch.pgo.solver import lm_optimize
+    res = {}
+    for device in ("cuda", "cpu"):
+        arrays = _two_by_288(device)
+        assert arrays.num_nodes == 1024
+        res[device] = lm_optimize(arrays, torch.ones(
+            arrays.num_edges, device=device), max_iters=15)
+    np.testing.assert_allclose(res["cuda"].poses.cpu().numpy()[:576],
+                               res["cpu"].poses.numpy()[:576], atol=2e-3)

@@ -103,9 +103,15 @@ def test_mac_fw_subset_selects_the_same_edges(case, best_rounding):
 
 
 def test_mac_above_dense_tier_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 16"):
-        tmac.MAC([ttypes.Edge(0, 1, 1.0)], [ttypes.Edge(1, 2, 1.0)], 600,
-                 device="cpu")
+    """Above the dense tier's 512 poses the MAC no longer raises: it builds
+    the chain + low-rank tier and selects (parity with the JAX package is
+    in tests/test_torch_mac_woodbury.py)."""
+    fixed = [ttypes.Edge(i, i + 1, 1.0) for i in range(599)]
+    mac = tmac.MAC(fixed, [ttypes.Edge(1, 300, 1.0), ttypes.Edge(2, 5, 1.0)],
+                   600, device="cpu")
+    assert not mac._dense and mac._P == 1024 and mac.num_lr_fixed == 0
+    sel, _, _ = mac.fw_subset(np.zeros(2), 1, max_iters=5)
+    np.testing.assert_array_equal(sel, [1.0, 0.0])   # the long edge
 
 
 @pytest.mark.parametrize("seed,nb_robots", [(0, 2), (1, 3), (4, 4)])
