@@ -48,7 +48,20 @@ Builds the hand-written kernels from the sources in the checkout (one
   ``torch.topk`` of ``matmul`` (the library yardstick) and its bound; last,
   ``torch.profiler`` device times and CUDA kernels per call of the step, of
   K2 and of K1 (the profiler may slow what runs after it, so it runs after
-  every timing).
+  every timing);
+* phase ``lidar`` — the lidar path at the lidar mission's width
+  (``benchmarks/lidar_e2e_scale_bench.py``): ``sc_search``, a seeded
+  65,536-scan bank (``benchmarks/scancontext_scale_bench.py``'s scans)
+  searched in 16-query chunks and at B = 1 through ``ScanContextBank``,
+  unfused (stage 1 ``euclidean_topk``) and fused (stage 1 = K1 on the
+  augmented ring keys), the best rows equal and K1 bit for bit with its
+  plain version there, with survivors per query; ``verify``, one 8-pair
+  verification chunk at pad_size 1024 (4 revisits with a known yaw and
+  offset within 0.1 m and 1 degree, 4 cross-scene pairs rejected, the
+  flags equal to the CPU's), its time, CUDA kernels and idle share;
+  ``mission``, 3 robots x 40 steps of the bench's mission through the
+  lidar, detection and back-end nodes (at least one verified inter-robot
+  loop, robot 0's optimized ATE <= odometry ATE + 0.05 m), with its spans.
 
 Every kernel's launch counter is set to 0 just before each main-path run and
 read just after; a kernel that did not launch fails the run. Prints the
@@ -1118,13 +1131,444 @@ def phase_swarm_floored(results, failures, robots=4, keyframes=120):
                                 **count.summary()}
 
 
+# -- phase lidar ------------------------------------------------------------
+
+_SC_SHAPE = (20, 60)
+_ROT_TOL_DEG, _TRANS_TOL_M = 1.0, 0.1     # verify: against ground truth
+
+
+def _scene_cloud(seed, n):
+    """``benchmarks/lidar_e2e_scale_bench.py``'s structured scene: two
+    walls, ground scatter and five pillars (the pillars pin the ICP)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    a1, a2 = rng.uniform(0, 2 * np.pi, 2)
+    d1, d2 = rng.uniform(6, 18, 2)
+    n3 = n // 3
+    wall1 = np.stack([np.cos(a1) * d1 + rng.uniform(-6, 6, n3),
+                      np.sin(a1) * d1 + rng.normal(0, 0.1, n3),
+                      rng.uniform(0, 3, n3)], 1)
+    wall2 = np.stack([np.cos(a2) * d2 + rng.normal(0, 0.1, n3),
+                      np.sin(a2) * d2 + rng.uniform(-6, 6, n3),
+                      rng.uniform(0, 2, n3)], 1)
+    rest = n - 2 * n3
+    ground = np.stack([rng.uniform(-20, 20, rest // 2),
+                       rng.uniform(-20, 20, rest // 2),
+                       rng.uniform(-0.2, 0.2, rest // 2)], 1)
+    m = rest - rest // 2
+    centers = rng.uniform(-15, 15, (5, 2))
+    which = rng.integers(0, 5, m)
+    pillars = np.stack([centers[which, 0] + rng.normal(0, 0.08, m),
+                        centers[which, 1] + rng.normal(0, 0.08, m),
+                        rng.uniform(0, 4, m)], 1)
+    return np.concatenate([wall1, wall2, ground, pillars]).astype(np.float32)
+
+
+def _pose_at(x, y, yaw=0.0):
+    import numpy as np
+    T = np.eye(4)
+    T[:3, :3] = [[np.cos(yaw), -np.sin(yaw), 0],
+                 [np.sin(yaw), np.cos(yaw), 0], [0, 0, 1.0]]
+    T[:3, 3] = [x, y, 0]
+    return T
+
+
+def _observe(scene, pose, rng):
+    """Scene points (world frame) in the frame of a sensor at ``pose``,
+    with 3 cm noise."""
+    import numpy as np
+    inv = np.linalg.inv(pose)
+    pts = scene @ inv[:3, :3].T + inv[:3, 3]
+    return (pts + rng.normal(scale=0.03, size=pts.shape)).astype(np.float32)
+
+
+def _sparse_scans(rng, shape):
+    """``benchmarks/scancontext_scale_bench.py``'s scans: 30% of the cells
+    set, heights up to 8 m."""
+    import numpy as np
+    return ((rng.random(shape, dtype=np.float32)
+             * (rng.random(shape, dtype=np.float32) > 0.7))
+            * np.float32(8.0))
+
+
+def _lidar_search(failures, device="cuda", N=65536, chunks=8, B=16):
+    """Part ``sc_search``: a seeded bank of N scans searched in B-query
+    chunks (half revisits of bank rows, rotated and perturbed; half new
+    scans) and at B = 1, unfused (stage 1 = ``euclidean_topk``) and fused
+    (stage 1 = K1 on the augmented ring keys), through
+    ``ScanContextBank``; the best rows must agree, and K1 must agree bit for
+    bit with its plain version on the augmented bank at B = B and 1."""
+    import numpy as np
+    import torch
+
+    from cslam_tpu_torch.matching import scancontext_bank as scb
+    from cslam_tpu_torch.ops import nns
+    rng = np.random.default_rng(0)
+    scans = _sparse_scans(rng, (N,) + _SC_SHAPE)
+    banks = {}
+    for name, fused in (("unfused", False), ("fused", True)):
+        bank = scb.ScanContextBank(capacity=N, fused_stage1=fused,
+                                   device=device)
+        for i in range(N):
+            bank.add_item(scans[i], i)
+        bank._sync_device()
+        banks[name] = bank
+    if not banks["fused"]._fused_stage1_ok():
+        failures.append("lidar sc_search: the fused bank fails its gate")
+    src = rng.integers(0, N, (chunks, B // 2))
+    shift = rng.integers(0, _SC_SHAPE[1], (chunks, B // 2))
+    queries = _sparse_scans(rng, (chunks, B) + _SC_SHAPE)
+    for c in range(chunks):
+        for j in range(B // 2):
+            queries[c, j] = np.roll(scans[src[c, j]], shift[c, j], axis=1) \
+                + rng.normal(0, 0.02, _SC_SHAPE).astype(np.float32)
+    torch.cuda.synchronize()
+    best = {}
+    launches = {}
+    for name, bank in banks.items():
+        nns.launches = 0
+        t0 = time.perf_counter()
+        found = [bank.search_best_batch(q.reshape(B, -1)) for q in queries]
+        one = [bank.search_best(q.reshape(-1)) for q in queries[:, 0]]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[name] = nns.launches       # the main path's K1 launches
+        best[name] = ([[item for item, _ in f] for f in found],
+                      [item for item, _ in one])
+        print(f"  sc_search {name}: {chunks} chunks of {B} + {chunks} single"
+              f" queries against {N} scans in {wall * 1e3:.1f} ms, "
+              f"{launches[name]} K1 launch(es)")
+    out = {"bank_rows": N, "chunk": B, "launches": launches}
+    out["best_rows_equal"] = best["fused"] == best["unfused"]
+    revisits = [row[:B // 2] for row in best["fused"][0]]
+    out["revisits_found"] = float(np.mean(np.asarray(revisits) == src))
+    if not out["best_rows_equal"]:
+        failures.append("lidar sc_search: fused and unfused best rows differ")
+    if launches["fused"] < 1 or launches["unfused"] != 0:
+        failures.append(f"lidar sc_search: K1 launches {launches}")
+    if out["revisits_found"] < 1.0:
+        failures.append(f"lidar sc_search: revisits found "
+                        f"{out['revisits_found']}")
+
+    fused, plain = banks["fused"], banks["unfused"]
+    aug = fused._rk_aug
+    for b in (B, 1):
+        q_sc = torch.from_numpy(queries[0, :b]).to(device)
+        rk_q = q_sc.mean(-1)
+        q_aug = scb._augment_queries(rk_q)
+        rec, _ = _scan_case("bank_scan", f"lidar augmented ring keys B={b}",
+                            aug, None, N, q_aug, fused.num_candidates,
+                            failures)
+        out[f"k1_b{b}"] = rec
+
+        def run_fused():
+            return scb._two_stage_best_fused(aug, fused._sc_bank, N, q_sc,
+                                             10)
+
+        def run_unfused():
+            return scb._two_stage_best(plain._rk_bank, plain._rk_sq_norms,
+                                       plain._sc_bank, N, q_sc, 10)
+
+        def k1():
+            return nns.cosine_topk_scan(aug, N, q_aug, 10)
+
+        def library():
+            return torch.topk(q_aug @ aug.T, 10, dim=1)
+
+        def euclid():
+            return scb.topk_ops.euclidean_topk(plain._rk_bank,
+                                               plain._rk_sq_norms, N, rk_q,
+                                               10)
+        ms_f, ms_u = _time_ms(run_fused, 20), _time_ms(run_unfused, 20)
+        out[f"b{b}"] = {
+            "fused_ms_per_chunk": ms_f, "unfused_ms_per_chunk": ms_u,
+            "fused_queries_per_s": b / ms_f * 1e3,
+            "unfused_queries_per_s": b / ms_u * 1e3,
+            "k1_ms": _time_ms(k1, 20),
+            "k1_plain_ms": _time_ms(
+                lambda: nns.cosine_topk_scan_ref(aug, N, q_aug, 10), 3, 1),
+            "k1_library_ms": _time_ms(library, 20),
+            "euclidean_topk_ms": _time_ms(euclid, 20),
+            # augmented rows and queries in, f32 + int64 out; the dots
+            **_bound(2.0 * b * N * 32, N * 32 * 4 + b * 32 * 4 + b * 10 * 12,
+                     "float32")}
+        print(f"  sc_search B={b}: " + json.dumps(out[f"b{b}"]))
+    for name in ("fused", "unfused"):
+        out[f"{name}_b{B}_profile"] = _device_profile(
+            lambda bank=banks[name]: bank.search_best_batch(
+                queries[0].reshape(B, -1)), 10)
+        print(f"  sc_search {name} B={B} profile: "
+              + json.dumps(out[f"{name}_b{B}_profile"]))
+    del banks
+    torch.cuda.empty_cache()
+    return out
+
+
+def _verify_pairs(rng):
+    """8 pairs at the lidar mission's width (4096-point scenes, voxel
+    0.4 m): 4 revisits of a scene from a second pose with a known yaw and
+    offset, then 4 pairs of two different scenes. Returns (pairs, the 4
+    ground-truth Z = X_src^-1 X_dst)."""
+    import numpy as np
+
+    from cslam_tpu_torch.ops.registration import voxel_downsample
+    scenes = [_scene_cloud(1000 + s, 4096) for s in range(8)]
+    pairs, truth = [], []
+    for j, (x, y, yaw) in enumerate(((0.8, 0.6, 0.4), (2.0, -1.0, 1.2),
+                                     (-1.5, 2.0, 2.5), (3.0, 1.0, -2.0))):
+        B = _pose_at(x, y, yaw)
+        pairs.append((voxel_downsample(_observe(scenes[j], np.eye(4), rng),
+                                       0.4),
+                      voxel_downsample(_observe(scenes[j], B, rng), 0.4)))
+        truth.append(B)
+    for j in range(4):
+        other = scenes[4 + (j + 1) % 4]
+        pairs.append((voxel_downsample(_observe(scenes[4 + j], np.eye(4),
+                                                rng), 0.4),
+                      voxel_downsample(_observe(other, _pose_at(1.0, 0.5,
+                                                                0.7), rng),
+                                       0.4)))
+    return pairs, truth
+
+
+def _lidar_verify(failures, device="cuda"):
+    """Part ``verify``: one ``_verify_pair_batch`` chunk of 8 pairs at
+    pad_size 1024 through ``compute_transform_batch_begin``/``_step``: the
+    4 revisits must pass within 0.1 m and 1 degree of ground truth, the 4
+    cross-scene pairs must be rejected, and the CUDA success flags must
+    equal the CPU's. Then the chunk's time (CUDA events, warm), its CUDA
+    kernels, device time and idle share (``torch.profiler``), and the host
+    syncs one chunk makes (``torch.cuda.set_sync_debug_mode``)."""
+    import math
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from cslam_tpu_torch.ops import registration as reg
+    from cslam_tpu_torch.utils import profiling
+    pairs, truth = _verify_pairs(np.random.default_rng(3))
+    profiling.reset_spans()
+    t0 = time.perf_counter()
+    handles = reg.compute_transform_batch_begin(pairs, 0.4, 40,
+                                                pad_size=1024, device=device)
+    for h in handles:
+        reg.compute_transform_batch_step(h)
+    first_s = time.perf_counter() - t0
+    results = [r for h in handles for r in h.results]
+    ok = [s for _, s in results]
+    out = {"pairs": len(pairs), "points": [len(s) for s, _ in pairs],
+           "success": ok, "first_call_s": first_s,
+           "icp_gate_pass": profiling.counters().get("verify.icp_gate_pass")}
+    errs = []
+    for (Z, _), gt in zip(results[:4], truth):
+        dR = Z[:3, :3].T @ gt[:3, :3]
+        errs.append((float(np.linalg.norm(Z[:3, 3] - gt[:3, 3])),
+                     math.degrees(math.acos(min(1.0, max(
+                         -1.0, (np.trace(dR) - 1.0) / 2.0))))))
+    out["revisit_err_m_deg"] = errs
+    if ok != [True] * 4 + [False] * 4:
+        failures.append(f"lidar verify: success flags {ok}")
+    if not all(e_t <= _TRANS_TOL_M and e_r <= _ROT_TOL_DEG
+               for e_t, e_r in errs):
+        failures.append(f"lidar verify: revisit errors {errs}")
+    t0 = time.perf_counter()
+    cpu = reg.compute_transform_batch(pairs, 0.4, 40, pad_size=1024,
+                                      device="cpu")
+    out["cpu_s"] = time.perf_counter() - t0
+    out["cpu_success"] = [s for _, s in cpu]
+    if out["cpu_success"] != ok:
+        failures.append(f"lidar verify: CPU flags {out['cpu_success']} "
+                        f"differ from CUDA {ok}")
+
+    tensors = reg._pair_tensors(pairs, 1024, device)
+    corr = torch.tensor(np.float32(0.6), device=device)
+
+    def chunk():
+        return reg._verify_pair_batch(*tensors, corr, 40.0,
+                                      float(np.float32(0.6)))
+    out["ms_per_chunk"] = _time_ms(chunk, 5, 1)
+    def syncs_in(fn):
+        """Synchronizing CUDA calls ``torch.cuda.set_sync_debug_mode``
+        reports while ``fn`` runs, and where."""
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        return [f"{w.filename}:{w.lineno}" for w in caught
+                if "synchroniz" in str(w.message)]
+    # the same with nothing inside: what switching the mode reports itself
+    out["host_syncs_empty_region"] = syncs_in(lambda: None)
+    out["host_sync_sites_per_chunk"] = syncs_in(chunk)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    chunk()
+    torch.cuda.synchronize()
+    out["peak_device_mb"] = torch.cuda.max_memory_allocated() / 2 ** 20
+    out["profile"] = _device_profile(chunk, 3)
+    print("  verify " + json.dumps(out))
+    return out
+
+
+def _lidar_mission(failures, robots=3, steps=40, device="cuda",
+                   points=4096, scenes=40, drain=60):
+    """Part ``mission``: ``benchmarks/lidar_e2e_scale_bench.py``'s mission
+    (its widths: 4096 points per scan, 40 scenes, voxel 0.4 m, pad 1024,
+    pair chunks up to 8, 20 x 60 descriptors and 10 candidates,
+    registration_min_inliers 40, similarity_threshold 0.7) through the
+    port's nodes on the card, at a reduced depth (``robots`` x ``steps``;
+    the bench runs 5 x 210), the MAC and PGO tier floors at their config
+    defaults, and the scan-context banks on the fused stage 1 (opt-in,
+    ``bank_initial_capacity`` 4096) so that every search goes through K1.
+    Limits: at least one verified inter-robot loop; robot 0's optimized
+    ATE <= its odometry ATE + 0.05 m."""
+    import numpy as np
+    import torch
+
+    from cslam_tpu_torch.config import CslamConfig
+    from cslam_tpu_torch.ops import nns
+    from cslam_tpu_torch.runtime import (DecentralizedPGO, DetectionFrontEnd,
+                                         LidarFrontEnd, MessageBus,
+                                         RobotContext, VirtualClock)
+    from cslam_tpu_torch.types import Odometry
+    from cslam_tpu_torch.utils import profiling
+    bus, clock = MessageBus(), VirtualClock()
+    nodes = []
+    for rid in range(robots):
+        cfg = CslamConfig(robot_id=rid, max_nb_robots=robots)
+        f = cfg.frontend
+        f.sensor_type = "lidar"
+        f.global_descriptor_technique = "scancontext"
+        f.similarity_threshold = 0.7
+        f.keyframe_generation_ratio_distance = 0.5
+        f.voxel_size = 0.4
+        f.registration_min_inliers = 40
+        f.inter_robot_detection_period_sec = 3.0
+        f.detection_publication_period_sec = 1.0
+        f.max_candidate_pool = 2048
+        f.harvest_ready_gate = True
+        f.scancontext_fused_stage1 = True
+        f.bank_initial_capacity = 4096
+        cfg.backend.pose_graph_optimization_start_period_ms = 30000
+        cfg.neighbor_management.enable_neighbor_monitoring = False
+        ctx = RobotContext(bus, clock, rid, cfg.flatten())
+        nodes.append((ctx, LidarFrontEnd(ctx, device=device),
+                      DetectionFrontEnd(ctx, device=device),
+                      DecentralizedPGO(ctx, synchronous_optimization=True,
+                                       device=device)))
+    world = [_scene_cloud(1000 + s, points) for s in range(scenes)]
+    scene_pose = [_pose_at(7.0 * (s % 8), 7.0 * (s // 8))
+                  for s in range(scenes)]
+    world = [w @ p[:3, :3].T + p[:3, 3] for w, p in zip(world, scene_pose)]
+    rng = np.random.default_rng(3)
+    gt = {r: [] for r in range(robots)}
+    drifted = {r: [] for r in range(robots)}
+    for r in range(robots):
+        cur = None
+        for i in range(steps):
+            s = (i + 5 * r) % scenes
+            p = scene_pose[s] @ _pose_at(0.3 * r, 0.2 * r, yaw=0.1 * r)
+            gt[r].append((s, p))
+            if cur is None:
+                cur = p.copy()
+            else:
+                z = np.linalg.inv(gt[r][i - 1][1]) @ p
+                z[:3, 3] += rng.normal(scale=0.05, size=3)
+                cur = cur @ z
+            drifted[r].append(cur.copy())
+    observed = {(r, i): _observe(world[gt[r][i][0]], gt[r][i][1], rng)
+                for r in range(robots) for i in range(steps)}
+    nodes[0][1].warmup(pair_tiers=(1, 8))
+    torch.cuda.synchronize()
+    profiling.reset_spans()
+    nns.launches = 0
+    t0 = time.perf_counter()
+    for i in range(steps):                     # the main path
+        for r in range(robots):
+            nodes[r][1].lidar_callback(observed[(r, i)],
+                                       Odometry(pose=drifted[r][i]))
+        clock.advance(1.0)
+        for ctx, *_ in nodes:
+            ctx.poll_timers()
+        bus.deliver()
+    for _ in range(drain):
+        clock.advance(1.0)
+        for ctx, *_ in nodes:
+            ctx.poll_timers()
+        bus.deliver()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = nns.launches
+    be0 = nodes[0][3]
+    keyframes = sum(n[1].nb_local_keyframes for n in nodes)
+    loops = sum(len(v) for v in be0.inter_robot_loop_closures.values())
+    est = {k[1]: p for k, p in be0.current_pose_estimates.items()
+           if k[0] == 0}
+
+    def rmse(poses):
+        return float(np.sqrt(np.mean([np.sum(
+            (poses[i][:3, 3] - gt[0][i][1][:3, 3]) ** 2) for i in poses])))
+    counters = profiling.counters()
+    spans = {k: v for k, v in profiling.spans().items()
+             if k.split(".")[0] in ("lidar", "verify", "lcd", "nns")
+             or k == "pgo.optimize"}
+    out = {"robots": robots, "steps": steps, "scenes": scenes,
+           "points": points, "drain_steps": drain,
+           "cuts": {"robots": f"{robots} (bench 5)",
+                    "steps": f"{steps} (bench 210)",
+                    "tier floors": "config defaults (bench pins MAC mf/P/E "
+                                   "and PGO np/ne at 2048)",
+                    "warmup": "verification only (the port compiles no "
+                              "tier)"},
+           "wall_s": wall, "keyframes": keyframes,
+           "keyframes_per_s": keyframes / wall,
+           "sim_s": float(steps + drain),
+           "real_time_factor": (steps + drain) / wall,
+           "inter_robot_loops": loops,
+           "optimizations": be0.optimization_count,
+           "ate_odometry_m": rmse({i: drifted[0][i] for i in range(steps)}),
+           "ate_optimized_m": rmse(est) if est else float("nan"),
+           "k1_launches": launches,
+           "verify_pairs": counters.get("verify.pairs", 0),
+           "icp_gate_pass": counters.get("verify.icp_gate_pass", 0),
+           "spans": spans}
+    out["icp_gate_pass_rate"] = (out["icp_gate_pass"] / out["verify_pairs"]
+                                 if out["verify_pairs"] else None)
+    print(profiling.report())
+    print("  mission " + json.dumps({k: v for k, v in out.items()
+                                     if k != "spans"}))
+    if loops < 1:
+        failures.append("lidar mission: no verified inter-robot loop")
+    if not out["ate_optimized_m"] <= out["ate_odometry_m"] + 0.05:
+        failures.append(f"lidar mission: optimized ATE "
+                        f"{out['ate_optimized_m']} > odometry ATE "
+                        f"{out['ate_odometry_m']} + 0.05")
+    if launches < 1:
+        failures.append("lidar mission: K1 not launched")
+    return out
+
+
+def phase_lidar(results, failures, robots=3, steps=40):
+    """The lidar path on the card: ``sc_search`` (the 65,536-scan bank,
+    fused and unfused stage 1, K1 on the augmented rows), ``verify`` (one
+    8-pair verification chunk) and ``mission`` (the node stack)."""
+    out = results["lidar"] = {}
+    out["sc_search"] = _lidar_search(failures)
+    out["verify"] = _lidar_verify(failures)
+    out["mission"] = _lidar_mission(failures, robots, steps)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument(
         "--phases",
-        default="bank_scan,swarm,swarm_floored,large_tiers,frontend",
+        default="bank_scan,swarm,swarm_floored,large_tiers,frontend,lidar",
         help="comma-separated subset of bank_scan,swarm,swarm_floored,"
-             "large_tiers,frontend")
+             "large_tiers,frontend,lidar")
     args = parser.parse_args()
     phases = args.phases.split(",")
 
@@ -1154,7 +1598,8 @@ def main() -> int:
         try:
             {"bank_scan": phase_bank_scan, "frontend": phase_frontend,
              "swarm": phase_swarm, "swarm_floored": phase_swarm_floored,
-             "large_tiers": phase_large_tiers}[phase](results, failures)
+             "large_tiers": phase_large_tiers,
+             "lidar": phase_lidar}[phase](results, failures)
         except Exception as exc:  # noqa: BLE001 - report, then fail the run
             import traceback
             traceback.print_exc()
@@ -1167,14 +1612,21 @@ def main() -> int:
     bf16 = results.get("bank_scan", {}).get("bfloat16", {})
     front = results.get("frontend", {})
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    lidar = results.get("lidar", {})
+    search = lidar.get("sc_search", {})
+    lidar_launches = (search.get("launches", {}).get("fused", 0)
+                      + lidar.get("mission", {}).get("k1_launches", 0))
     kernel = {
         "name": "bank_scan", "route": "cuda",
         "source": "cslam_tpu_torch/csrc/bank_scan.cu",
         "replaces": "cslam_tpu/ops/nns_pallas.py:177",
         "launches": results.get("swarm", {}).get(
-            "launches", f32.get("launches_main_path", 0)),
+            "launches", f32.get("launches_main_path", 0)) + lidar_launches,
+        "launches_lidar": lidar_launches,
         "max_abs_err": max([c.get("max_abs_err", 0.0) for c in
                             f32.get("cases", []) + bf16.get("cases", [])]
+                           + [search.get(f"k1_b{b}", {}).get(
+                               "max_abs_err", 0.0) for b in (1, 16)]
                            + [f32.get("max_abs_err", 0.0),
                               bf16.get("max_abs_err", 0.0)]),
         **{key: f32.get(key) for key in keys},
@@ -1184,7 +1636,9 @@ def main() -> int:
         "kernels_per_call": front.get("bank_scan_b512_profile", {}).get(
             "kernels_per_call"),
         "variants": {"bfloat16": {key: v for key, v in bf16.items()
-                                  if key != "cases"}}}
+                                  if key != "cases"},
+                     "lidar_ring_keys_65536x32_B16": search.get("b16"),
+                     "lidar_ring_keys_65536x32_B1": search.get("b1")}}
     b1 = front.get("tile_scan_b1", {})   # the frontend step's shape
     tile = {
         "name": "tile_scan", "route": "cuda",

@@ -6,9 +6,10 @@ one bank per other robot; every new descriptor is searched against the
 other side's banks and similarity hits above the threshold become candidate
 edges for the budgeted selector.
 
-Only the visual (global-descriptor) banks are ported so far: a lidar
-configuration raises ``NotImplementedError`` (ROADMAP.md item 11, the lidar
-path).
+A lidar configuration (``frontend.sensor_type: lidar``) keeps Scan Context
+banks (``matching.scancontext_bank``): every other robot's bank is searched
+for a local keyframe in one multi-bank search, and a gossip chunk in one
+batched two-stage search of the local bank.
 """
 from __future__ import annotations
 
@@ -19,6 +20,8 @@ import torch
 
 from cslam_tpu_torch import resolve_device
 from cslam_tpu_torch.matching.nns_bank import DescriptorBank
+from cslam_tpu_torch.matching.scancontext_bank import (
+    ScanContextBank, multi_search_best_begin, multi_search_best_finish)
 from cslam_tpu_torch.ops import topk as topk_ops
 from cslam_tpu_torch.selection.acm import AlgebraicConnectivityMaximization
 from cslam_tpu_torch.types import EdgeInterRobot
@@ -45,16 +48,21 @@ class SearchHandle:
     @property
     def arrays(self):
         out = []
-        for _, _, payload in self.parts:
-            out.extend(payload)
+        for kind, _, payload in self.parts:
+            if kind in ("sc", "sc_batch"):
+                out.extend(payload.arrays)
+            else:
+                out.extend(payload)
         return out
 
 
 def _make_bank(params: dict, device):
     if params.get("frontend.sensor_type") == "lidar":
-        raise NotImplementedError(
-            "scan-context banks are not ported yet (ROADMAP.md item 11, "
-            "the lidar path)")
+        return ScanContextBank(
+            capacity=params.get("frontend.bank_initial_capacity", 1024),
+            fused_stage1=params.get(
+                "frontend.scancontext_fused_stage1", False),
+            device=device)
     return DescriptorBank(
         capacity=params.get("frontend.bank_initial_capacity", 1024),
         dtype=params.get("frontend.nns_bank_dtype", "float32"),
@@ -98,14 +106,23 @@ class LoopClosureSparseMatching:
         self.local_nnsm.add_item(embedding, keyframe_id)
         hits: List[Tuple[int, Any, float]] = []
         groups: Dict[int, list] = {}
+        sc_banks: List[Tuple[int, Any]] = []
         for rid, bank in self.other_robots_nnsm.items():
-            if bank.n > 0 and bank.capacity <= self._MULTI_SEARCH_MAX_CAPACITY:
+            if isinstance(bank, ScanContextBank):
+                sc_banks.append((rid, bank))
+            elif (bank.n > 0
+                  and bank.capacity <= self._MULTI_SEARCH_MAX_CAPACITY):
                 groups.setdefault(bank.capacity, []).append((rid, bank))
             else:
                 kf, similarity = bank.search_best(embedding)
                 if kf is not None:
                     hits.append((rid, kf, similarity))
         parts = []
+        if sc_banks:
+            # scan-context banks: every other robot's in one search
+            parts.append(("sc", [rid for rid, _ in sc_banks],
+                          multi_search_best_begin(
+                              [b for _, b in sc_banks], embedding)))
         if groups:
             q = torch.from_numpy(np.asarray(embedding, np.float32)).to(
                 self.device)
@@ -126,7 +143,13 @@ class LoopClosureSparseMatching:
         """Materialize a dispatched per-keyframe search: read results,
         threshold, and register candidate edges."""
         hits = list(handle.hits)
-        for _, meta, payload in handle.parts:
+        for kind, meta, payload in handle.parts:
+            if kind == "sc":
+                for rid, (kf, similarity) in zip(
+                        meta, multi_search_best_finish(payload)):
+                    if kf is not None:
+                        hits.append((rid, kf, similarity))
+                continue
             sims, idx = (device_read.to_numpy(payload[0]),
                          device_read.to_numpy(payload[1]))
             for (rid, b), s, i in zip(meta, sims, idx):
@@ -179,6 +202,11 @@ class LoopClosureSparseMatching:
             return handle
         queries = np.stack([np.asarray(m.descriptor, np.float32).ravel()
                             for m in msgs])
+        if isinstance(self.local_nnsm, ScanContextBank):
+            handle.parts.append(
+                ("sc_batch", None,
+                 self.local_nnsm.search_best_batch_begin(queries)))
+            return handle
         sims, idx = self.local_nnsm.search_batch_begin(queries, k=1)
         handle.parts.append(("bank_batch", None, (sims, idx)))
         return handle
@@ -189,11 +217,14 @@ class LoopClosureSparseMatching:
         register candidate edges."""
         if not handle.parts:
             return []
-        _, _, payload = handle.parts[0]
-        sims = device_read.to_numpy(payload[0])
-        idx = device_read.to_numpy(payload[1])
-        best = [(self.local_nnsm.items[int(i)], float(s))
-                for s, i in zip(sims[:, 0], idx[:, 0])]
+        kind, _, payload = handle.parts[0]
+        if kind == "sc_batch":
+            best = self.local_nnsm.search_best_batch_finish(payload)
+        else:
+            sims = device_read.to_numpy(payload[0])
+            idx = device_read.to_numpy(payload[1])
+            best = [(self.local_nnsm.items[int(i)], float(s))
+                    for s, i in zip(sims[:, 0], idx[:, 0])]
         matches = []
         threshold = self.params["frontend.similarity_threshold"]
         for m, (kf, s) in zip(handle.msgs, best):

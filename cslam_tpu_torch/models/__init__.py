@@ -3,8 +3,7 @@
 Counterpart of ``cslam_tpu/models/__init__.py``: the factory mirrors the
 reference's technique selection
 (``cslam/global_descriptor_loop_closure_detection.py:42-60``). CosPlace and
-NetVLAD are ported; ScanContext (the lidar descriptor) is not yet
-(ROADMAP.md item 11) and asking for it raises.
+NetVLAD are the VPR models; ScanContext is the lidar descriptor.
 """
 from __future__ import annotations
 
@@ -23,8 +22,7 @@ def make_global_descriptor(params: dict, device=None):
         from cslam_tpu_torch.models.netvlad import NetVLAD
         return NetVLAD(params, device=device)
     if technique == "scancontext":
-        raise NotImplementedError(
-            "global-descriptor model 'scancontext' is not ported yet "
-            "(ROADMAP.md item 11, the lidar path)")
+        from cslam_tpu_torch.models.scancontext import ScanContext
+        return ScanContext(params, device=device)
     from cslam_tpu_torch.models.cosplace import CosPlace
     return CosPlace(params, device=device)

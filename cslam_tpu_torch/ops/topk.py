@@ -104,3 +104,24 @@ def cosine_top1_multi(banks: torch.Tensor, inv_norms: torch.Tensor,
              < ns[:, None])
     sims = torch.where(valid, sims, torch.full_like(sims, -float("inf")))
     return torch.max(sims, dim=1).values, torch.argmax(sims, dim=1)
+
+
+def euclidean_topk(bank: torch.Tensor, sq_norms: torch.Tensor, n: int,
+                   queries: torch.Tensor, k: int):
+    """Top-k *smallest* euclidean distances (returned as negated distances,
+    ``2 q.b - ||b||^2``; the query norm does not change the order).
+
+    The ScanContext ring-key shortlist (reference
+    ``cslam/lidar_pr/scancontext_matching.py:59-65`` builds a host KDTree
+    per query). The product runs in full float32: call it with TF32 off
+    (``ops.highest_precision``), or the ``||b||^2`` term swamps the
+    distances. Ties go to the lower row index, as ``lax.top_k`` breaks
+    them. Returns ``([B, k] f32, [B, k] int64)``; rows past ``n`` are
+    ``-inf``."""
+    bank = bank.float()
+    queries = queries.float()
+    neg_sq_dist = 2.0 * (queries @ bank.T) - sq_norms[None, :]
+    valid = torch.arange(bank.shape[0], device=bank.device)[None, :] < n
+    neg_sq_dist = torch.where(valid, neg_sq_dist,
+                              torch.full_like(neg_sq_dist, -float("inf")))
+    return topk_ties_ascending(neg_sq_dist, k)

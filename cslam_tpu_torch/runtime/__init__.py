@@ -11,3 +11,6 @@ reference processes. Device code never blocks on this plane.
 
 from cslam_tpu_torch.runtime.bus import MessageBus, RobotContext  # noqa: F401
 from cslam_tpu_torch.runtime.clock import VirtualClock, WallClock  # noqa: F401
+from cslam_tpu_torch.runtime.backend_node import DecentralizedPGO  # noqa: F401
+from cslam_tpu_torch.runtime.lcd_node import DetectionFrontEnd  # noqa: F401
+from cslam_tpu_torch.runtime.lidar_frontend import LidarFrontEnd  # noqa: F401

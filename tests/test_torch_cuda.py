@@ -1,8 +1,9 @@
 """Tests that need the CUDA device: the hand-written kernels (K1, the bank
-scan, and K2, the tile scan) against their plain PyTorch versions, and the
-large-graph solver tiers (MAC's Woodbury/LOBPCG tier, PGO's PCG tier) on
-the card against the same solves on the CPU. They skip on a machine
-without a GPU.
+scan, also on the scan-context bank's augmented ring keys, and K2, the tile
+scan) against their plain PyTorch versions, and the large-graph solver
+tiers (MAC's Woodbury/LOBPCG tier, PGO's PCG tier) and one lidar
+verification chunk on the card against the same on the CPU. They skip on a
+machine without a GPU.
 
 This file imports neither JAX nor the JAX package, so it also runs where
 only PyTorch is installed; there the JAX-importing ``tests/conftest.py``
@@ -185,3 +186,56 @@ def test_pcg_lm_optimize_on_card_matches_cpu():
             arrays.num_edges, device=device), max_iters=15)
     np.testing.assert_allclose(res["cuda"].poses.cpu().numpy()[:576],
                                res["cpu"].poses.numpy()[:576], atol=2e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 16])
+def test_bank_scan_on_augmented_ring_keys_matches_plain_version(B):
+    """K1 on the scan-context bank's fused stage 1: augmented ring-key rows
+    ``[rk, ||rk||^2, 0...]`` (non-unit, D = 32) against ``[2q, -1, 0...]``
+    queries, k = 10, bit for bit with its plain version on the small path
+    (B = 1) and the screen path (B = 16); the indices are the euclidean
+    shortlist's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from cslam_tpu_torch.matching import scancontext_bank as scb
+    from cslam_tpu_torch.ops import topk as topk_ops
+    rng = np.random.default_rng(4)
+    scans = (rng.random((8192, 20, 60), dtype=np.float32)
+             * (rng.random((8192, 20, 60), dtype=np.float32) > 0.7) * 8.0)
+    rk = torch.from_numpy(scans.mean(-1)).cuda()
+    aug = scb._augment_ring_keys(rk)
+    q_rk = rk[rng.integers(0, 8192, B)] + 0.01
+    q_aug = scb._augment_queries(q_rk)
+    n = 8000
+    before = nns.launches
+    gv, gi = nns.cosine_topk_scan(aug, n, q_aug, 10)
+    assert nns.launches == before + 1
+    rv, ri = nns.cosine_topk_scan_ref(aug, n, q_aug, 10)
+    assert torch.equal(gi, ri) and torch.equal(gv, rv)
+    _, ei = topk_ops.euclidean_topk(rk, (rk * rk).sum(-1), n, q_rk, 10)
+    assert torch.equal(gi[:, 0], ei[:, 0])
+
+
+@pytest.mark.cuda
+def test_verify_pair_batch_on_card_matches_cpu():
+    """One 8-pair verification chunk at pad_size 1024 (``chip_smoke.py``'s:
+    4 revisits, 4 cross-scene pairs) on the card and on the CPU: equal
+    success flags, transforms within 1e-3 rad and 1e-2 m."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import math
+
+    from chip_smoke import _verify_pairs
+    from cslam_tpu_torch.ops import registration as reg
+    pairs, _ = _verify_pairs(np.random.default_rng(3))
+    out = {d: reg.compute_transform_batch(pairs, 0.4, 40, pad_size=1024,
+                                          device=d) for d in ("cuda", "cpu")}
+    assert [s for _, s in out["cuda"]] == [s for _, s in out["cpu"]] \
+        == [True] * 4 + [False] * 4
+    for (Zc, ok), (Zh, _) in zip(out["cuda"], out["cpu"]):
+        if ok:
+            dR = Zc[:3, :3].T @ Zh[:3, :3]
+            angle = math.acos(min(1.0, max(-1.0, (np.trace(dR) - 1) / 2)))
+            assert angle <= 1e-3
+            assert np.abs(Zc[:3, 3] - Zh[:3, 3]).max() <= 1e-2

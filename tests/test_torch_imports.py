@@ -54,6 +54,27 @@ def test_vpr_models_entry_and_kernels_import_without_jax():
     assert out.stdout.split() == ["10", "['bank_scan',", "'tile_scan']"]
 
 
+def test_lidar_modules_import_without_jax():
+    """The lidar slice's modules by name: scan context ops, model and bank,
+    registration, the GNC core, the lidar front end, the host-only copies."""
+    code = (
+        "import sys, importlib\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['cslam_tpu'] = None\n"
+        "for name in ('ops.scancontext', 'models.scancontext',\n"
+        "             'matching.scancontext_bank', 'ops.registration',\n"
+        "             'ops.visual_registration', 'runtime.lidar_frontend',\n"
+        "             'utils.compression', 'utils.point_cloud2'):\n"
+        "    importlib.import_module('cslam_tpu_torch.' + name)\n"
+        "from cslam_tpu_torch.runtime import LidarFrontEnd\n"
+        "from cslam_tpu_torch.ops import topk\n"
+        "print(LidarFrontEnd.__name__, topk.euclidean_topk.__name__)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["LidarFrontEnd", "euclidean_topk"]
+
+
 def test_source_scan_finds_no_jax_import():
     files = sorted((REPO / "cslam_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
@@ -76,7 +97,9 @@ def _entry_points(params):
     from cslam_tpu_torch.types import Edge
 
     from cslam_tpu_torch.entry import entry
+    from cslam_tpu_torch.matching.scancontext_bank import ScanContextBank
     from cslam_tpu_torch.models import make_global_descriptor
+    from cslam_tpu_torch.ops.registration import compute_transform
 
     graph = FactorGraph()
     graph.add_variable((0, 0), np.eye(4))
@@ -92,13 +115,18 @@ def _entry_points(params):
         "make_global_descriptor": lambda: make_global_descriptor(
             {"frontend.nn_checkpoint": "random"}),
         "entry": entry,
+        "ScanContextBank": lambda: ScanContextBank(),
+        "ScanContext": lambda: make_global_descriptor(
+            {"frontend.global_descriptor_technique": "scancontext"}),
+        "compute_transform": lambda: compute_transform(
+            np.zeros((4, 3)), np.zeros((4, 3)), 0.4, 40),
     }
 
 
 @pytest.mark.parametrize("name", [
     "resolve_device", "DescriptorBank", "LoopClosureSparseMatching", "MAC",
     "FactorGraph.to_arrays", "SwarmSimulator", "make_global_descriptor",
-    "entry"])
+    "entry", "ScanContextBank", "ScanContext", "compute_transform"])
 def test_default_device_without_gpu_raises(monkeypatch, name):
     from helpers import matching_params
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

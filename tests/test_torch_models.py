@@ -238,7 +238,16 @@ def test_fit_pca_matches_jax():
     assert np.all(dots / norms > 0.999)   # the same axes, up to sign
 
 
-def test_scancontext_still_raises_naming_its_item():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        make_global_descriptor(
-            {"frontend.global_descriptor_technique": "scancontext"})
+def test_scancontext_still_raises_naming_its_item(monkeypatch):
+    """ROADMAP item 11 (the lidar path) is ported, so ScanContext no longer
+    raises ``NotImplementedError``. Like every entry point it still raises
+    when no device is named and no GPU is there, and it runs on the device
+    the caller names."""
+    from cslam_tpu_torch.ops.scancontext import points_to_scancontext_np
+    params = {"frontend.global_descriptor_technique": "scancontext"}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no GPU is available"):
+        make_global_descriptor(params)
+    pts = np.random.default_rng(0).uniform(-50, 50, (500, 3))
+    got = make_global_descriptor(params, device="cpu").compute_embedding(pts)
+    assert np.array_equal(got, points_to_scancontext_np(pts).reshape(-1))
