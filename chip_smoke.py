@@ -61,7 +61,23 @@ Builds the hand-written kernels from the sources in the checkout (one
   flags equal to the CPU's), its time, CUDA kernels and idle share;
   ``mission``, 3 robots x 40 steps of the bench's mission through the
   lidar, detection and back-end nodes (at least one verified inter-robot
-  loop, robot 0's optimized ATE <= odometry ATE + 0.05 m), with its spans.
+  loop, robot 0's optimized ATE <= odometry ATE + 0.05 m), with its spans;
+* phase ``visual`` — the visual (RGB-D / stereo) path at
+  ``benchmarks/visual_e2e_scale_bench.py``'s widths: ``visual_verify``, one
+  16-pair chunk at ``benchmarks/verification_bench.py``'s widths (512
+  correspondence slots, 200 live, 20% outliers) through ``gnc_align_batch``
+  and, for the same poses projected through the bench's 320 x 240 camera,
+  through ``gnc_pnp_batch`` (every pair within 1 degree and 0.05 m of the
+  truth, inlier counts equal to the CPU's, no host sync inside a chunk),
+  with times, CUDA kernels, idle share and peak memory; ``visual_mission``,
+  3 robots x 40 steps of the bench's rendered mission through
+  ``RGBDFrontEnd`` -> ``DetectionFrontEnd`` (CosPlace, the visual bank on
+  K1) -> ``DecentralizedPGO`` (the C++ feature library loaded, at least one
+  verified inter-robot loop, robot 0's optimized ATE <= odometry ATE +
+  0.05 m); ``visual_stereo``, two ``StereoFrontEnd``s from
+  ``make_map_manager`` exchanging a keyframe (the CPU's flags, within 0.12
+  m of the truth), then the mission's stereo variant at 3 x 20 through the
+  same node stack (the same limits).
 
 Every kernel's launch counter is set to 0 just before each main-path run and
 read just after; a kernel that did not launch fails the run. Prints the
@@ -1331,6 +1347,24 @@ def _verify_pairs(rng):
     return pairs, truth
 
 
+def _syncs_in(fn):
+    """Synchronizing CUDA calls ``torch.cuda.set_sync_debug_mode`` reports
+    while ``fn`` runs, and where."""
+    import warnings
+
+    import torch
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return [f"{w.filename}:{w.lineno}" for w in caught
+            if "synchroniz" in str(w.message)]
+
+
 def _lidar_verify(failures, device="cuda"):
     """Part ``verify``: one ``_verify_pair_batch`` chunk of 8 pairs at
     pad_size 1024 through ``compute_transform_batch_begin``/``_step``: the
@@ -1340,7 +1374,6 @@ def _lidar_verify(failures, device="cuda"):
     kernels, device time and idle share (``torch.profiler``), and the host
     syncs one chunk makes (``torch.cuda.set_sync_debug_mode``)."""
     import math
-    import warnings
 
     import numpy as np
     import torch
@@ -1388,22 +1421,9 @@ def _lidar_verify(failures, device="cuda"):
         return reg._verify_pair_batch(*tensors, corr, 40.0,
                                       float(np.float32(0.6)))
     out["ms_per_chunk"] = _time_ms(chunk, 5, 1)
-    def syncs_in(fn):
-        """Synchronizing CUDA calls ``torch.cuda.set_sync_debug_mode``
-        reports while ``fn`` runs, and where."""
-        torch.cuda.synchronize()
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                fn()
-            finally:
-                torch.cuda.set_sync_debug_mode(0)
-        return [f"{w.filename}:{w.lineno}" for w in caught
-                if "synchroniz" in str(w.message)]
     # the same with nothing inside: what switching the mode reports itself
-    out["host_syncs_empty_region"] = syncs_in(lambda: None)
-    out["host_sync_sites_per_chunk"] = syncs_in(chunk)
+    out["host_syncs_empty_region"] = _syncs_in(lambda: None)
+    out["host_sync_sites_per_chunk"] = _syncs_in(chunk)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     chunk()
@@ -1562,13 +1582,453 @@ def phase_lidar(results, failures, robots=3, steps=40):
     out["mission"] = _lidar_mission(failures, robots, steps)
 
 
+# -- phase visual -----------------------------------------------------------
+# ``benchmarks/visual_e2e_scale_bench.py``'s frames and camera
+_VIS_W, _VIS_H = 320, 240
+_VIS_CAM = {"fx": 300.0, "fy": 300.0, "cx": 160.0, "cy": 120.0}
+_VIS_ROT_TOL_DEG, _VIS_TRANS_TOL_M = 1.0, 0.05   # visual_verify: truth
+
+
+def _vis_scene(seed, n=None):
+    """``visual_e2e_scale_bench.make_scene``: a textured landmark field with
+    a scene-distinct global appearance (background ramp, ambient level,
+    texture band, stamp size and count), so that untrained GeM pooling
+    separates scenes. Returns (points, textures, background, half size)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    if n is None:
+        n = int(rng.integers(60, 220))
+    pts = np.stack([rng.uniform(-5, 5, n), rng.uniform(-3, 3, n),
+                    rng.uniform(4, 11, n)], axis=1)
+    a0, a1 = rng.integers(0, 150, 2)
+    bg = ((a0 + (a1 - a0) * np.linspace(0, 1, _VIS_H))[:, None]
+          * np.ones((1, _VIS_W)))
+    lo = int(rng.integers(30, 150))
+    hi = lo + int(rng.integers(40, 105))
+    half = int(rng.integers(3, 8))
+    tex = rng.integers(lo, hi, (n, 2 * half + 1, 2 * half + 1),
+                       dtype=np.int64)
+    return pts, tex, bg.astype(np.uint8), half
+
+
+def _vis_test_world(seed, n=120):
+    """``tests/test_visual_frontend.make_world`` as a scene of
+    :func:`_vis_render` (uniform background 10, 11 x 11 stamps)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    pts = np.stack([rng.uniform(-4, 4, n), rng.uniform(-3, 3, n),
+                    rng.uniform(4, 10, n)], axis=1)
+    tex = rng.integers(30, 255, (n, 11, 11), dtype=np.int64)
+    return pts, tex, np.full((_VIS_H, _VIS_W), 10, np.uint8), 5
+
+
+def _vis_render(scene, pose):
+    """``visual_e2e_scale_bench.render``: painter's-algorithm stamps in the
+    camera at ``pose``; returns (grayscale image, metric depth)."""
+    import numpy as np
+    pts, tex, bg, half = scene
+    fx, fy, cx, cy = (_VIS_CAM[k] for k in ("fx", "fy", "cx", "cy"))
+    img = bg.copy()
+    dep = np.zeros((_VIS_H, _VIS_W), np.float32)
+    inv = np.linalg.inv(pose)
+    cpts = pts @ inv[:3, :3].T + inv[:3, 3]
+    for i in np.argsort(-cpts[:, 2]):
+        x, y, z = cpts[i]
+        if z < 0.5:
+            continue
+        u = int(round(fx * x / z + cx))
+        v = int(round(fy * y / z + cy))
+        if not (20 <= u < _VIS_W - 20 and 20 <= v < _VIS_H - 20):
+            continue
+        img[v - half:v + half + 1, u - half:u + half + 1] = \
+            tex[i].astype(np.uint8)
+        dep[v - half:v + half + 1, u - half:u + half + 1] = z
+    return img, dep
+
+
+def _pose_xyz_yaw(x, y, z=0.0, yaw=0.0):
+    import numpy as np
+    T = np.eye(4)
+    c, s = np.cos(yaw), np.sin(yaw)
+    T[:3, :3] = [[c, -s, 0], [s, c, 0], [0, 0, 1]]
+    T[:3, 3] = [x, y, z]
+    return T
+
+
+def _pose_errors(got, truth):
+    """(rotation error in degrees, translation error in m) of each ``[4,
+    4]`` estimate against its truth."""
+    import math
+
+    import numpy as np
+    out = []
+    for G, W in zip(got, truth):
+        dR = np.asarray(G)[:3, :3].T @ W[:3, :3]
+        out.append((math.degrees(math.acos(min(1.0, max(
+            -1.0, (np.trace(dR) - 1.0) / 2.0)))),
+            float(np.linalg.norm(np.asarray(G)[:3, 3] - W[:3, 3]))))
+    return out
+
+
+def _verification_chunks(rng, P=16, n=200, slots=512):
+    """``benchmarks/verification_bench.py``'s chunk (P pairs, ``n`` of
+    ``slots`` correspondences live, every fifth an outlier moved 2-5 m)
+    and, for the same P poses and outlier slots, a projective chunk: ``n``
+    pixels of the bench's 320 x 240 camera at 3-12 m in the local frame,
+    the remote points mapped through the pose's inverse, the outliers'
+    pixels moved 40-200 px and their local points 2-5 m. Returns (3D-3D
+    arrays, PnP arrays, the P ground-truth transforms)."""
+    import numpy as np
+    src = np.zeros((P, slots, 3), np.float32)
+    dst = np.zeros((P, slots, 3), np.float32)
+    valid = np.zeros((P, slots), np.float32)
+    p3d = np.zeros((P, slots, 3), np.float32)
+    uv = np.zeros((P, slots, 2), np.float32)
+    init = np.zeros((P, slots, 3), np.float32)
+    fx, fy, cx, cy = (_VIS_CAM[k] for k in ("fx", "fy", "cx", "cy"))
+    truth = []
+    for i in range(P):
+        pts = rng.uniform(-5, 5, (n, 3)).astype(np.float32)
+        angle = rng.uniform(-0.5, 0.5)
+        c, s = np.cos(angle), np.sin(angle)
+        R = np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]], np.float32)
+        t = rng.uniform(-1, 1, 3).astype(np.float32)
+        moved = pts @ R.T + t
+        moved[::5] += rng.uniform(2, 5, (len(moved[::5]), 3))
+        src[i, :n], dst[i, :n], valid[i, :n] = pts, moved, 1.0
+        T = np.eye(4)
+        T[:3, :3], T[:3, 3] = R, t
+        truth.append(T)
+        # projective: local pixels and depths, remote points = T^-1 p_local
+        pix = np.stack([rng.uniform(0, _VIS_W, n), rng.uniform(0, _VIS_H, n)],
+                       1)
+        z = rng.uniform(3, 12, n)
+        local = np.stack([(pix[:, 0] - cx) * z / fx,
+                          (pix[:, 1] - cy) * z / fy, z], 1)
+        p3d[i, :n] = (local - t) @ R          # R^T (p - t), row form
+        uv[i, :n] = pix + rng.normal(scale=0.3, size=pix.shape)
+        uv[i, :n:5] += rng.uniform(40, 200, (len(uv[i, :n:5]), 2))
+        init[i, :n] = local
+        init[i, :n:5] += rng.uniform(2, 5, (len(init[i, :n:5]), 3))
+    return (src, dst, valid), (p3d, uv, valid.copy(), init), truth
+
+
+def _visual_verify(failures, device="cuda"):
+    """Part ``visual_verify``: one 16-pair chunk at
+    ``benchmarks/verification_bench.py``'s widths through
+    ``gnc_align_batch`` (12 GNC iterations, inlier distance 0.3 m), then
+    the same poses as a projective chunk through ``gnc_pnp_batch`` (24
+    iterations, 4 px). Limits: every pair within 1 degree and 0.05 m of
+    the truth; inlier counts equal to the same call on the CPU; no host
+    sync inside a chunk. Then each chunk's time (CUDA events, warm), CUDA
+    kernels, device time and idle share (``torch.profiler``) and peak
+    memory."""
+    import numpy as np
+    import torch
+
+    from cslam_tpu_torch.ops import visual_registration as vreg
+    rigid, pnp, truth = _verification_chunks(np.random.default_rng(0))
+    cam = [_VIS_CAM[k] for k in ("fx", "fy", "cx", "cy")]
+    chunks = {
+        "gnc_align_batch": lambda dev, arrays=None: vreg.gnc_align_batch(
+            *(arrays or rigid), 0.3, iters=12, device=dev),
+        "gnc_pnp_batch": lambda dev, arrays=None: vreg.gnc_pnp_batch(
+            *(arrays or pnp), *cam, inlier_px=4.0, iters=24, device=dev)}
+    out = {"pairs": len(truth), "live_correspondences": 200,
+           "slots": vreg.MAX_CORRESPONDENCES, "outliers": 0.2}
+    for name, run in chunks.items():
+        rec = out[name] = {}
+        T, inl = run(device)
+        torch.cuda.synchronize()
+        T_cpu, inl_cpu = run("cpu")
+        errs = _pose_errors(T.cpu().numpy(), truth)
+        rec["max_rot_err_deg"] = max(e[0] for e in errs)
+        rec["max_trans_err_m"] = max(e[1] for e in errs)
+        rec["inliers"] = inl.cpu().tolist()
+        rec["inliers_equal_cpu"] = rec["inliers"] == inl_cpu.tolist()
+        rec["max_abs_T_diff_cpu"] = float((T.cpu() - T_cpu).abs().max())
+        if not all(r <= _VIS_ROT_TOL_DEG and t <= _VIS_TRANS_TOL_M
+                   for r, t in errs):
+            failures.append(f"visual_verify {name}: pose errors {errs}")
+        if not rec["inliers_equal_cpu"]:
+            failures.append(f"visual_verify {name}: inliers {rec['inliers']}"
+                            f" differ from the CPU's {inl_cpu.tolist()}")
+        tensors = [torch.as_tensor(a, device=device)
+                   for a in (rigid if name == "gnc_align_batch" else pnp)]
+
+        def chunk(run=run, tensors=tensors):
+            return run(device, tensors)
+        rec["ms_per_chunk"] = _time_ms(chunk, 10, 2)
+        # what switching the mode reports itself is not the chunk's
+        empty = _syncs_in(lambda: None)
+        rec["host_syncs_empty_region"] = empty
+        rec["host_sync_sites_per_chunk"] = _syncs_in(chunk)
+        inside = [w for w in rec["host_sync_sites_per_chunk"]
+                  if w not in empty]
+        if inside:
+            failures.append(f"visual_verify {name}: host syncs inside the "
+                            f"chunk {inside}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        chunk()
+        torch.cuda.synchronize()
+        rec["peak_device_mb"] = torch.cuda.max_memory_allocated() / 2 ** 20
+    # the profiler last: its tracing may slow what runs after it
+    for name, run in chunks.items():
+        tensors = [torch.as_tensor(a, device=device)
+                   for a in (rigid if name == "gnc_align_batch" else pnp)]
+        out[name]["profile"] = _device_profile(
+            lambda run=run, tensors=tensors: run(device, tensors), 3)
+    print("  visual_verify " + json.dumps(out))
+    return out
+
+
+def _visual_config(rid, robots, threshold=0.998, sensor="rgbd"):
+    """``visual_e2e_scale_bench``'s per-robot config (RGB-D, CosPlace
+    ResNet18 + GeM, fc 64, crop 224, the port's seeded golden weights), the
+    MAC and PGO tier floors at config defaults."""
+    from cslam_tpu_torch.config import CslamConfig
+    cfg = CslamConfig(robot_id=rid, max_nb_robots=robots)
+    f = cfg.frontend
+    f.sensor_type = sensor
+    f.global_descriptor_technique = "cosplace"
+    f.nn_checkpoint = "random"
+    f.image_crop_size = 224
+    f.similarity_threshold = threshold
+    f.keyframe_generation_ratio_threshold = 1.0
+    f.pnp_min_inliers = 10
+    f.inter_robot_detection_period_sec = 3.0
+    f.detection_publication_period_sec = 1.0
+    f.warmup_verification_tiers = (1, 2, 4, 8, 16)
+    f.max_candidate_pool = 2048
+    f.harvest_ready_gate = True
+    cfg.backend.pose_graph_optimization_start_period_ms = 30000
+    cfg.neighbor_management.enable_neighbor_monitoring = False
+    return cfg.flatten()
+
+
+def _visual_mission(failures, robots=3, steps=40, device="cuda", scenes=40,
+                    drain=60, threshold=0.998, sensor="rgbd"):
+    """Part ``visual_mission``: ``benchmarks/visual_e2e_scale_bench.py``'s
+    mission (320 x 240 rendered RGB-D frames of 40 scenes, drifting
+    odometry, every frame a keyframe) through ``RGBDFrontEnd`` ->
+    ``DetectionFrontEnd`` -> ``DecentralizedPGO`` on ``device``, at a
+    reduced depth (``robots`` x ``steps``; the bench runs 5 x 210); with
+    ``sensor="stereo"`` the same with rendered stereo pairs (0.2 m
+    baseline) through the ``StereoFrontEnd`` that ``make_map_manager``
+    builds. Limits: the C++ feature library loaded; at least one verified
+    inter-robot loop; robot 0's optimized ATE <= its odometry ATE + 0.05
+    m; K1 launched (on CUDA)."""
+    import numpy as np
+    import torch
+
+    from cslam_tpu_torch import native
+    from cslam_tpu_torch.ops import nns
+    from cslam_tpu_torch.runtime import (CameraModel, DecentralizedPGO,
+                                         DetectionFrontEnd, MessageBus,
+                                         RobotContext, VirtualClock,
+                                         make_map_manager)
+    from cslam_tpu_torch.types import Odometry
+    from cslam_tpu_torch.utils import profiling
+    cam = CameraModel(**_VIS_CAM, baseline=0.2)
+    bus, clock = MessageBus(), VirtualClock()
+    nodes = []
+    for rid in range(robots):
+        ctx = RobotContext(bus, clock, rid, _visual_config(
+            rid, robots, threshold, sensor))
+        nodes.append((ctx, make_map_manager(ctx, cam, device=device),
+                      DetectionFrontEnd(ctx, device=device),
+                      DecentralizedPGO(ctx, synchronous_optimization=True,
+                                       device=device)))
+    scene_pose = [_pose_xyz_yaw(7.0 * (s % 8), 7.0 * (s // 8))
+                  for s in range(scenes)]
+    world = []
+    for s in range(scenes):
+        pts, tex, bg, half = _vis_scene(1000 + s)
+        pts = pts @ scene_pose[s][:3, :3].T + scene_pose[s][:3, 3]
+        world.append((pts, tex, bg, half))
+    rng = np.random.default_rng(3)
+    gt = {r: [] for r in range(robots)}
+    drifted = {r: [] for r in range(robots)}
+    for r in range(robots):
+        cur = None
+        for i in range(steps):
+            s = (i + 5 * r) % scenes
+            p = scene_pose[s] @ _pose_xyz_yaw(0.25 * r, 0.15 * r, 0.1 * r,
+                                              yaw=0.06 * r)
+            gt[r].append((s, p))
+            if cur is None:
+                cur = p.copy()
+            else:
+                z = np.linalg.inv(gt[r][i - 1][1]) @ p
+                z[:3, 3] += rng.normal(scale=0.05, size=3)
+                cur = cur @ z
+            drifted[r].append(cur.copy())
+    frames = {}
+    for r in range(robots):
+        for i in range(steps):
+            scene, pose = world[gt[r][i][0]], gt[r][i][1]
+            img, dep = _vis_render(scene, pose)
+            if sensor == "stereo":          # (left, right) for the callback
+                dep = _vis_render(scene, pose @ _pose_xyz_yaw(
+                    cam.baseline, 0.0))[0]
+            frames[(r, i)] = (np.stack([img] * 3, axis=-1), dep)
+    native_available = native.available()      # builds the library once
+    if device != "cpu":
+        torch.cuda.synchronize()
+    profiling.reset_spans()
+    nns.launches = 0
+    t0 = time.perf_counter()
+    for i in range(steps):                     # the main path
+        for r in range(robots):
+            fe = nodes[r][1]
+            intake = (fe.stereo_callback if sensor == "stereo"
+                      else fe.rgbd_callback)
+            intake(*frames[(r, i)], Odometry(pose=drifted[r][i]))
+        clock.advance(1.0)
+        for ctx, *_ in nodes:
+            ctx.poll_timers()
+        bus.deliver()
+    for _ in range(drain):
+        clock.advance(1.0)
+        for ctx, *_ in nodes:
+            ctx.poll_timers()
+        bus.deliver()
+    if device != "cpu":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = nns.launches
+    be0 = nodes[0][3]
+    keyframes = sum(n[1].nb_local_keyframes for n in nodes)
+    loops = sum(len(v) for v in be0.inter_robot_loop_closures.values())
+    est = {k[1]: p for k, p in be0.current_pose_estimates.items()
+           if k[0] == 0}
+
+    def rmse(poses):
+        return float(np.sqrt(np.mean([np.sum(
+            (poses[i][:3, 3] - gt[0][i][1][:3, 3]) ** 2) for i in poses])))
+    spans = {k: v for k, v in profiling.spans().items()
+             if k.split(".")[0] in ("rgbd", "lcd", "nns")
+             or k == "pgo.optimize"}
+    out = {"sensor": sensor, "front_end": type(nodes[0][1]).__name__,
+           "robots": robots, "steps": steps, "scenes": scenes,
+           "frame": f"{_VIS_W}x{_VIS_H}", "drain_steps": drain,
+           "similarity_threshold": threshold,
+           "cuts": {"robots": f"{robots} (bench 5)",
+                    "steps": f"{steps} (bench 210)",
+                    "tier floors": "config defaults (bench pins MAC mf/P/E "
+                                   "and PGO np/ne at 2048)"},
+           "native_available": native_available,
+           "wall_s": wall, "keyframes": keyframes,
+           "keyframes_per_s": keyframes / wall,
+           "real_time_factor": (steps + drain) / wall,
+           "inter_robot_loops": loops,
+           "optimizations": be0.optimization_count,
+           "ate_odometry_m": rmse({i: drifted[0][i] for i in range(steps)}),
+           "ate_optimized_m": rmse(est) if est else float("nan"),
+           "k1_launches": launches, "spans": spans}
+    print(profiling.report())
+    print(f"  visual_mission {sensor} " + json.dumps(
+        {k: v for k, v in out.items() if k != "spans"}))
+    tag = f"visual mission ({sensor})"
+    if not out["native_available"]:
+        failures.append(f"{tag}: the C++ feature library is not loaded")
+    if loops < 1:
+        failures.append(f"{tag}: no verified inter-robot loop")
+    if not out["ate_optimized_m"] <= out["ate_odometry_m"] + 0.05:
+        failures.append(f"{tag}: optimized ATE {out['ate_optimized_m']} > "
+                        f"odometry ATE {out['ate_odometry_m']} + 0.05")
+    if device != "cpu" and launches < 1:
+        failures.append(f"{tag}: K1 not launched")
+    return out
+
+
+def _stereo_exchange(device):
+    """Two stereo robots built by ``make_map_manager`` (``sensor_type:
+    stereo``, baseline 0.2 m) on the rendered pairs of
+    ``tests/test_visual_frontend.py``'s stereo cases (its world, seed 6):
+    robot 1 ships its keyframe to robot 0's. Returns the closures and the
+    ground-truth relative pose."""
+    import numpy as np
+
+    from cslam_tpu_torch.runtime import (CameraModel, MessageBus,
+                                         RobotContext, VirtualClock,
+                                         make_map_manager)
+    from cslam_tpu_torch.types import LocalDescriptorsRequest, Odometry
+    cam = CameraModel(**_VIS_CAM, baseline=0.2)
+    world = _vis_test_world(6)
+    poses = [_pose_xyz_yaw(0, 0, 0), _pose_xyz_yaw(0.3, -0.2, 0.0, yaw=0.08)]
+    bus, clock = MessageBus(), VirtualClock()
+    fes = []
+    for rid, X in enumerate(poses):
+        ctx = RobotContext(bus, clock, rid, {
+            "robot_id": rid, "max_nb_robots": 2,
+            "frontend.sensor_type": "stereo",
+            "frontend.map_manager_process_period_ms": 100})
+        fe = make_map_manager(ctx, cam, device=device)
+        left, _ = _vis_render(world, X)
+        right, _ = _vis_render(world, X @ _pose_xyz_yaw(cam.baseline, 0, 0))
+        fe.stereo_callback(left, right, Odometry(pose=X))
+        fes.append(fe)
+    clock.advance(0.2)
+    for fe in fes:
+        fe.ctx.poll_timers()
+    bus.deliver()
+    closures = []
+    bus.subscribe("/cslam/inter_robot_loop_closure", closures.append)
+    bus.publish("/r1/cslam/local_descriptors_request",
+                LocalDescriptorsRequest(keyframe_id=0, matches_robot_id=[0],
+                                        matches_keyframe_id=[0]))
+    bus.deliver()
+    return ([type(fe).__name__ for fe in fes], closures,
+            np.linalg.inv(poses[0]) @ poses[1])
+
+
+def _visual_stereo(failures, device="cuda", robots=3, steps=20):
+    """Part ``visual_stereo``: the two-robot stereo exchange on ``device``
+    and on the CPU (limits: a closure, verified, with the CPU's flags, its
+    translation within 0.12 m of the truth); then the visual mission's
+    stereo variant at ``robots`` x ``steps`` (its limits)."""
+    import numpy as np
+    kinds, got, truth = _stereo_exchange(device)
+    _, cpu, _ = _stereo_exchange("cpu")
+    out = {"front_ends": kinds, "success": [c.success for c in got],
+           "cpu_success": [c.success for c in cpu]}
+    if got and got[0].success:
+        out["trans_err_m"] = float(np.linalg.norm(
+            got[0].transform[:3, 3] - truth[:3, 3]))
+    print("  visual_stereo " + json.dumps(out))
+    if kinds != ["StereoFrontEnd"] * 2:
+        failures.append(f"visual stereo: make_map_manager built {kinds}")
+    if out["success"] != [True] or out["cpu_success"] != out["success"]:
+        failures.append(f"visual stereo: flags {out['success']} (CPU "
+                        f"{out['cpu_success']})")
+    elif not out["trans_err_m"] <= 0.12:
+        failures.append(f"visual stereo: translation error "
+                        f"{out['trans_err_m']} m")
+    out["mission"] = _visual_mission(failures, robots, steps, device,
+                                     drain=40, sensor="stereo")
+    return out
+
+
+def phase_visual(results, failures, robots=3, steps=40):
+    """The visual (RGB-D / stereo) path on the card: ``visual_verify`` (one
+    16-pair 3D-3D chunk and one projective chunk), ``visual_mission`` (the
+    RGB-D node stack) and ``visual_stereo`` (two stereo front ends)."""
+    out = results["visual"] = {}
+    out["visual_verify"] = _visual_verify(failures)
+    out["visual_mission"] = _visual_mission(failures, robots, steps)
+    out["visual_stereo"] = _visual_stereo(failures)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument(
         "--phases",
-        default="bank_scan,swarm,swarm_floored,large_tiers,frontend,lidar",
+        default="bank_scan,swarm,swarm_floored,large_tiers,frontend,lidar,"
+                "visual",
         help="comma-separated subset of bank_scan,swarm,swarm_floored,"
-             "large_tiers,frontend,lidar")
+             "large_tiers,frontend,lidar,visual")
     args = parser.parse_args()
     phases = args.phases.split(",")
 
@@ -1599,7 +2059,8 @@ def main() -> int:
             {"bank_scan": phase_bank_scan, "frontend": phase_frontend,
              "swarm": phase_swarm, "swarm_floored": phase_swarm_floored,
              "large_tiers": phase_large_tiers,
-             "lidar": phase_lidar}[phase](results, failures)
+             "lidar": phase_lidar,
+             "visual": phase_visual}[phase](results, failures)
         except Exception as exc:  # noqa: BLE001 - report, then fail the run
             import traceback
             traceback.print_exc()
@@ -1616,13 +2077,20 @@ def main() -> int:
     search = lidar.get("sc_search", {})
     lidar_launches = (search.get("launches", {}).get("fused", 0)
                       + lidar.get("mission", {}).get("k1_launches", 0))
+    visual = results.get("visual", {})
+    visual_launches = (
+        visual.get("visual_mission", {}).get("k1_launches", 0)
+        + visual.get("visual_stereo", {}).get("mission", {}).get(
+            "k1_launches", 0))
     kernel = {
         "name": "bank_scan", "route": "cuda",
         "source": "cslam_tpu_torch/csrc/bank_scan.cu",
         "replaces": "cslam_tpu/ops/nns_pallas.py:177",
         "launches": results.get("swarm", {}).get(
-            "launches", f32.get("launches_main_path", 0)) + lidar_launches,
+            "launches", f32.get("launches_main_path", 0)) + lidar_launches
+        + visual_launches,
         "launches_lidar": lidar_launches,
+        "launches_visual": visual_launches,
         "max_abs_err": max([c.get("max_abs_err", 0.0) for c in
                             f32.get("cases", []) + bf16.get("cases", [])]
                            + [search.get(f"k1_b{b}", {}).get(

@@ -19,11 +19,12 @@ the device (:func:`_verify_pair_batch`):
 
 What differs from the JAX package, and why:
 - ``jax.vmap`` over pairs and yaw hypotheses becomes explicit batch axes:
-  every function here takes a leading pair axis (``[P, N, 3]`` clouds,
-  ``[P, N]`` masks), and the ICP runs ``[P, H, Ns, Nd]`` distance blocks.
-  The JAX package's single-pair ``robust_registration`` and
-  ``global_registration`` and their ``*_batch`` vmaps are one function
-  each here; a single pair is ``P = 1``.
+  the solvers take a leading pair axis (``[P, N, 3]`` clouds, ``[P, N]``
+  masks), and the ICP runs ``[P, H, Ns, Nd]`` distance blocks. The public
+  names are the JAX package's: ``robust_registration`` and
+  ``global_registration`` take one pair (``[N, 3]``, ``[N]``) and run it as
+  ``P = 1``; ``robust_registration_batch`` and
+  ``global_registration_batch`` take ``[P, N, 3]``.
 - The ``fori_loop``s are fixed-count Python loops; nothing in
   :func:`_verify_pair_batch` reads a tensor on the host, and the chunk's
   one read is at :func:`compute_transform_batch_step`.
@@ -297,20 +298,27 @@ def _gather_hyp(x, idx):
                         .expand(shape))
 
 
+def _corr(corr_dist, like: torch.Tensor) -> torch.Tensor:
+    """``corr_dist`` (a float or a scalar tensor) as a float32 scalar on
+    ``like``'s device, as the JAX package's ``jnp.float32(corr_dist)``."""
+    return torch.as_tensor(corr_dist, dtype=torch.float32, device=like.device)
+
+
 @highest_precision
-def robust_registration(src, src_mask, dst, dst_mask, corr_dist,
-                        iters: int = 24, num_yaw_hypotheses: int = 8,
-                        coarse_stride: int = 4, refine_top: int = 2):
+def robust_registration_batch(src, src_mask, dst, dst_mask, corr_dist,
+                              iters: int = 24, num_yaw_hypotheses: int = 8,
+                              coarse_stride: int = 4, refine_top: int = 2):
     """Multi-start robust ICP, src -> dst, for ``P`` pairs at once.
 
-    ``src, dst [P, N, 3]``, masks ``[P, N]``, ``corr_dist`` a float32
-    scalar tensor. Returns (T ``[P, 4, 4]`` point map src -> dst, inliers
-    ``[P]``) of each pair's best yaw hypothesis. The yaw sweep runs on a
-    ``coarse_stride``-strided source subset; the ``refine_top`` best
+    ``src, dst [P, N, 3]``, masks ``[P, N]``, ``corr_dist`` a float or a
+    float32 scalar tensor. Returns (T ``[P, 4, 4]`` point map src -> dst,
+    inliers ``[P]``) of each pair's best yaw hypothesis. The yaw sweep runs
+    on a ``coarse_stride``-strided source subset; the ``refine_top`` best
     hypotheses by coarse inlier count (ties to the lower index) are refined
     at full resolution with a tight kernel; the final count is always full
     resolution."""
     P, dev = src.shape[0], src.device
+    corr_dist = _corr(corr_dist, src)
     yaws = torch.arange(num_yaw_hypotheses, dtype=torch.float32,
                         device=dev) * (2 * math.pi / num_yaw_hypotheses)
     cs, cd = _centroid(src, src_mask), _centroid(dst, dst_mask)
@@ -330,6 +338,17 @@ def robust_registration(src, src_mask, dst, dst_mask, corr_dist,
     best = torch.argmax(inliers, dim=1, keepdim=True)
     return (_to_T(_gather_hyp(Rf, best)[:, 0], _gather_hyp(tf, best)[:, 0]),
             inliers.gather(1, best)[:, 0])
+
+
+def robust_registration(src, src_mask, dst, dst_mask, corr_dist,
+                        iters: int = 24, num_yaw_hypotheses: int = 8,
+                        coarse_stride: int = 4, refine_top: int = 2):
+    """:func:`robust_registration_batch` of one pair: ``src, dst [N, 3]``,
+    masks ``[N]``. Returns (T ``[4, 4]`` point map src -> dst, inliers)."""
+    T, inliers = robust_registration_batch(
+        src[None], src_mask[None], dst[None], dst_mask[None], corr_dist,
+        iters, num_yaw_hypotheses, coarse_stride, refine_top)
+    return T[0], inliers[0]
 
 
 # ---------------------------------------------------------------------------
@@ -520,12 +539,14 @@ def _fpfh_alignment(src, src_mask, dst, dst_mask, corr_dist, k: int):
 
 
 @highest_precision
-def global_registration(src, src_mask, dst, dst_mask, corr_dist, k: int = 16,
-                        icp_iters: int = 24, n_yaw: int = 32):
+def global_registration_batch(src, src_mask, dst, dst_mask, corr_dist,
+                              k: int = 16, icp_iters: int = 24,
+                              n_yaw: int = 32):
     """Prior-free global registration + robust ICP refinement of ``P``
     pairs. The top-correlation yaw/translation hypothesis and the FPFH
     hypothesis are both refined by robust ICP; the inlier count picks the
-    winner. Same contract as :func:`robust_registration`."""
+    winner. Same contract as :func:`robust_registration_batch`."""
+    corr_dist = _corr(corr_dist, src)
     Rs, ts, scores = _yaw_correlation_candidates(src, src_mask, dst,
                                                  dst_mask, n_yaw)
     T0 = _fpfh_alignment(src, src_mask, dst, dst_mask, corr_dist, k)
@@ -540,6 +561,16 @@ def global_registration(src, src_mask, dst, dst_mask, corr_dist, k: int = 16,
             inl.gather(1, best)[:, 0])
 
 
+def global_registration(src, src_mask, dst, dst_mask, corr_dist, k: int = 16,
+                        icp_iters: int = 24, n_yaw: int = 32):
+    """:func:`global_registration_batch` of one pair (``[N, 3]`` clouds,
+    ``[N]`` masks); same contract as :func:`robust_registration`."""
+    T, inliers = global_registration_batch(
+        src[None], src_mask[None], dst[None], dst_mask[None], corr_dist, k,
+        icp_iters, n_yaw)
+    return T[0], inliers[0]
+
+
 @highest_precision
 def _verify_pair_batch(src, sm, dst, dm, corr_dist, min_inliers,
                        min_inlier_ratio):
@@ -549,8 +580,8 @@ def _verify_pair_batch(src, sm, dst, dm, corr_dist, min_inliers,
     gate; otherwise the higher-inlier candidate is taken and re-gated.
     Returns (T ``[P, 4, 4]``, inliers ``[P]``, success ``[P]``, ICP-gate
     pass ``[P]``)."""
-    T0, inl0 = robust_registration(src, sm, dst, dm, corr_dist)
-    Tg, inlg = global_registration(src, sm, dst, dm, corr_dist)
+    T0, inl0 = robust_registration_batch(src, sm, dst, dm, corr_dist)
+    Tg, inlg = global_registration_batch(src, sm, dst, dm, corr_dist)
     n_src = torch.clamp(sm.sum(1), min=1.0)
 
     def gate(inl):
@@ -679,8 +710,8 @@ def compute_transform(src_points: np.ndarray, dst_points: np.ndarray,
     src, src_mask, dst, dst_mask = _pair_tensors([(src_points, dst_points)],
                                                  pad_size, device)
     corr = torch.tensor(np.float32(float(voxel_size) * 1.5), device=device)
-    T_pointmap, inliers = robust_registration(src, src_mask, dst, dst_mask,
-                                              corr)
+    T_pointmap, inliers = robust_registration_batch(src, src_mask, dst,
+                                                    dst_mask, corr)
     n_src = max(float(src_mask.sum()), 1.0)
 
     def gate(count):
@@ -690,7 +721,8 @@ def compute_transform(src_points: np.ndarray, dst_points: np.ndarray,
     inliers = float(inliers[0])
     success = gate(inliers)
     if not success:
-        T_g, inl_g = global_registration(src, src_mask, dst, dst_mask, corr)
+        T_g, inl_g = global_registration_batch(src, src_mask, dst, dst_mask,
+                                               corr)
         inl_g = float(inl_g[0])
         if int(inl_g) > int(inliers):
             T_pointmap, inliers = T_g, inl_g

@@ -14,3 +14,6 @@ from cslam_tpu_torch.runtime.clock import VirtualClock, WallClock  # noqa: F401
 from cslam_tpu_torch.runtime.backend_node import DecentralizedPGO  # noqa: F401
 from cslam_tpu_torch.runtime.lcd_node import DetectionFrontEnd  # noqa: F401
 from cslam_tpu_torch.runtime.lidar_frontend import LidarFrontEnd  # noqa: F401
+from cslam_tpu_torch.runtime.rgbd_frontend import (  # noqa: F401
+    CameraModel, RGBDFrontEnd, StereoFrontEnd)
+from cslam_tpu_torch.runtime.map_manager import make_map_manager  # noqa: F401

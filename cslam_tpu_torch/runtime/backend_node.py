@@ -19,11 +19,14 @@ rendezvous schedule when enabled (cpp:683-694).
 Counterpart of ``cslam_tpu/runtime/backend_node.py``, centralized mode
 only: the solver runs on the node's torch device (CUDA unless the caller
 passes another). The distributed mode (``backend.pgo_mode: distributed``)
-raises ``NotImplementedError`` until ROADMAP.md item 14 (multi-device).
+is not ported yet (ROADMAP.md item 14, multi-device); asking for it takes
+the centralized solve, as the JAX package does when it has fewer devices
+than robots.
 """
 from __future__ import annotations
 
 import enum
+import logging
 from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Dict, List, Optional, Set, Tuple
 
@@ -509,10 +512,15 @@ class DecentralizedPGO:
         return (a, b) if a <= b else (b, a)
 
     def _optimize_distributed(self, graph: FactorGraph):
-        """The mesh-sharded block Gauss-Seidel mode is not ported yet."""
-        raise NotImplementedError(
+        """The mesh-sharded block Gauss-Seidel mode is not ported yet:
+        returns ``None``, so the caller falls back to the centralized
+        solve, as the JAX package does with fewer devices than robots
+        (``cslam_tpu/runtime/backend_node.py:536-538``)."""
+        del graph
+        logging.getLogger(__name__).info(
             "backend.pgo_mode 'distributed' is not ported yet (ROADMAP.md "
-            "item 14, multi-device)")
+            "item 14, multi-device); solving centralized")
+        return None
 
     def _gnc_call(self, arrays):
         """Single chokepoint for ``gnc_optimize`` (warmup and production

@@ -1,8 +1,9 @@
 """Tests that need the CUDA device: the hand-written kernels (K1, the bank
 scan, also on the scan-context bank's augmented ring keys, and K2, the tile
 scan) against their plain PyTorch versions, and the large-graph solver
-tiers (MAC's Woodbury/LOBPCG tier, PGO's PCG tier) and one lidar
-verification chunk on the card against the same on the CPU. They skip on a
+tiers (MAC's Woodbury/LOBPCG tier, PGO's PCG tier), one lidar
+verification chunk and one visual 3D-3D and one projective verification
+chunk on the card against the same on the CPU. They skip on a
 machine without a GPU.
 
 This file imports neither JAX nor the JAX package, so it also runs where
@@ -239,3 +240,27 @@ def test_verify_pair_batch_on_card_matches_cpu():
             angle = math.acos(min(1.0, max(-1.0, (np.trace(dR) - 1) / 2)))
             assert angle <= 1e-3
             assert np.abs(Zc[:3, 3] - Zh[:3, 3]).max() <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["gnc_align_batch", "gnc_pnp_batch"])
+def test_visual_verification_chunk_on_card_matches_cpu(solver):
+    """One 16-pair visual verification chunk (``chip_smoke.py``'s, at
+    ``benchmarks/verification_bench.py``'s widths) on the card and on the
+    CPU: equal inlier counts, transforms within 1e-4 of each other."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from chip_smoke import _VIS_CAM, _verification_chunks
+    from cslam_tpu_torch.ops import visual_registration as vreg
+    rigid, pnp, _ = _verification_chunks(np.random.default_rng(0))
+    cam = [_VIS_CAM[k] for k in ("fx", "fy", "cx", "cy")]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        if solver == "gnc_align_batch":
+            T, inl = vreg.gnc_align_batch(*rigid, 0.3, device=dev)
+        else:
+            T, inl = vreg.gnc_pnp_batch(*pnp, *cam, device=dev)
+        out[dev] = (T.cpu(), inl.cpu())
+    assert torch.equal(out["cuda"][1], out["cpu"][1])
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=0,
+                               atol=1e-4)

@@ -75,6 +75,29 @@ def test_lidar_modules_import_without_jax():
     assert out.stdout.split() == ["LidarFrontEnd", "euclidean_topk"]
 
 
+def test_visual_modules_import_without_jax():
+    """The visual slice's modules by name: the native loader and its numpy
+    oracle, the visual verification, the RGB-D/stereo front ends, the
+    visualization helpers and the map-manager factory."""
+    code = (
+        "import sys, importlib\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['cslam_tpu'] = None\n"
+        "for name in ('native', 'native.fallback',\n"
+        "             'ops.visual_registration', 'runtime.rgbd_frontend',\n"
+        "             'runtime.visualization', 'runtime.map_manager'):\n"
+        "    importlib.import_module('cslam_tpu_torch.' + name)\n"
+        "from cslam_tpu_torch.runtime import (CameraModel, RGBDFrontEnd,\n"
+        "    StereoFrontEnd, make_map_manager)\n"
+        "from cslam_tpu_torch import native\n"
+        "print(StereoFrontEnd.__mro__[1].__name__, native._lib)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    # importing builds nothing: the library is built at first use
+    assert out.stdout.split() == ["RGBDFrontEnd", "None"]
+
+
 def test_source_scan_finds_no_jax_import():
     files = sorted((REPO / "cslam_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
@@ -99,8 +122,19 @@ def _entry_points(params):
     from cslam_tpu_torch.entry import entry
     from cslam_tpu_torch.matching.scancontext_bank import ScanContextBank
     from cslam_tpu_torch.models import make_global_descriptor
+    from cslam_tpu_torch.ops import visual_registration as vreg
     from cslam_tpu_torch.ops.registration import compute_transform
+    from cslam_tpu_torch.runtime import (CameraModel, MessageBus,
+                                         RGBDFrontEnd, RobotContext,
+                                         StereoFrontEnd, VirtualClock,
+                                         make_map_manager)
 
+    def ctx(sensor="rgbd"):
+        return RobotContext(MessageBus(), VirtualClock(), 0, {
+            "robot_id": 0, "max_nb_robots": 2,
+            "frontend.sensor_type": sensor})
+    cam = CameraModel(300.0, 300.0, 160.0, 120.0, 0.2)
+    z3, z2, v = np.zeros((1, 8, 3)), np.zeros((1, 8, 2)), np.ones((1, 8))
     graph = FactorGraph()
     graph.add_variable((0, 0), np.eye(4))
     world = SyntheticWorld(nb_places=4)
@@ -120,13 +154,28 @@ def _entry_points(params):
             {"frontend.global_descriptor_technique": "scancontext"}),
         "compute_transform": lambda: compute_transform(
             np.zeros((4, 3)), np.zeros((4, 3)), 0.4, 40),
+        "RGBDFrontEnd": lambda: RGBDFrontEnd(ctx(), cam),
+        "StereoFrontEnd": lambda: StereoFrontEnd(ctx("stereo"), cam),
+        "make_map_manager": lambda: make_map_manager(ctx("stereo"), cam),
+        "gnc_align": lambda: vreg.gnc_align(z3[0], z3[0], v[0], 0.3),
+        "gnc_align_batch": lambda: vreg.gnc_align_batch(z3, z3, v, 0.3),
+        "gnc_pnp_batch": lambda: vreg.gnc_pnp_batch(z3, z2, v, z3, 300.0,
+                                                    300.0, 160.0, 120.0),
+        "verify_keyframe_pairs": lambda: vreg.verify_keyframe_pairs([]),
+        "verify_keyframe_pairs_projective": lambda:
+            vreg.verify_keyframe_pairs_projective([], 300.0, 300.0, 160.0,
+                                                  120.0),
+        "warmup_verification": lambda: vreg.warmup_verification((1,)),
     }
 
 
 @pytest.mark.parametrize("name", [
     "resolve_device", "DescriptorBank", "LoopClosureSparseMatching", "MAC",
     "FactorGraph.to_arrays", "SwarmSimulator", "make_global_descriptor",
-    "entry", "ScanContextBank", "ScanContext", "compute_transform"])
+    "entry", "ScanContextBank", "ScanContext", "compute_transform",
+    "RGBDFrontEnd", "StereoFrontEnd", "make_map_manager", "gnc_align",
+    "gnc_align_batch", "gnc_pnp_batch", "verify_keyframe_pairs",
+    "verify_keyframe_pairs_projective", "warmup_verification"])
 def test_default_device_without_gpu_raises(monkeypatch, name):
     from helpers import matching_params
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -190,7 +190,8 @@ def test_yaw_correlation_shift_on_tie_free_yaws(known):
 
 def test_robust_registration_matches_reference(known):
     (S, SM, D, DM), (s, sm, d, dm) = known[1], known[2]
-    got_T, got_inl = T.robust_registration(s, sm, d, dm, torch.tensor(CORR))
+    got_T, got_inl = T.robust_registration_batch(s, sm, d, dm,
+                                                 torch.tensor(CORR))
     for i in range(3):               # the revisits; the unrelated pair fails
         want_T, want_inl = J.robust_registration(
             jnp.asarray(S[i]), jnp.asarray(SM[i]), jnp.asarray(D[i]),
@@ -198,6 +199,34 @@ def test_robust_registration_matches_reference(known):
         _assert_close_T(got_T[i].numpy(), want_T)
         assert abs(float(got_inl[i]) - float(want_inl)) <= 2.0
         assert float(got_inl[i]) > 0.9 * PAD
+
+
+@pytest.mark.parametrize("name", ["robust_registration",
+                                  "global_registration"])
+def test_single_pair_and_batch_names_match_reference(known, name):
+    """The JAX package's surface: ``name`` takes one pair ``[N, 3]`` (a
+    float ``corr_dist``), ``name + '_batch'`` takes ``[P, N, 3]``; both
+    packages get the same inputs. Same limits as above."""
+    (S, SM, D, DM), (s, sm, d, dm) = known[1], known[2]
+    one, batch = getattr(T, name), getattr(T, name + "_batch")
+    j_one, j_batch = getattr(J, name), getattr(J, name + "_batch")
+    got_T, got_inl = one(s[0], sm[0], d[0], dm[0], float(CORR))
+    assert got_T.shape == (4, 4) and got_inl.dim() == 0
+    want_T, want_inl = j_one(jnp.asarray(S[0]), jnp.asarray(SM[0]),
+                             jnp.asarray(D[0]), jnp.asarray(DM[0]),
+                             corr_dist=float(CORR))
+    _assert_close_T(got_T.numpy(), want_T)
+    assert abs(float(got_inl) - float(want_inl)) <= 2.0
+    got_Tb, got_inlb = batch(s[:2], sm[:2], d[:2], dm[:2], float(CORR))
+    want_Tb, want_inlb = j_batch(jnp.asarray(S[:2]), jnp.asarray(SM[:2]),
+                                 jnp.asarray(D[:2]), jnp.asarray(DM[:2]),
+                                 float(CORR))
+    assert got_Tb.shape == (2, 4, 4) and got_inlb.shape == (2,)
+    for i in range(2):
+        _assert_close_T(got_Tb[i].numpy(), np.asarray(want_Tb)[i])
+        assert abs(float(got_inlb[i]) - float(want_inlb[i])) <= 2.0
+    # the single-pair call is the batch's first row
+    torch.testing.assert_close(got_T, got_Tb[0], rtol=0, atol=1e-6)
 
 
 @pytest.fixture(scope="module")
@@ -268,7 +297,8 @@ def test_global_registration_matches_reference_at_1024(large_offset):
     want_T, want_inl = J.global_registration(
         jnp.asarray(S[0]), jnp.asarray(SM[0]), jnp.asarray(D[0]),
         jnp.asarray(DM[0]), corr_dist=float(corr))
-    got_T, got_inl = T.global_registration(s, sm, d, dm, torch.tensor(corr))
+    got_T, got_inl = T.global_registration_batch(s, sm, d, dm,
+                                                 torch.tensor(corr))
     _assert_close_T(got_T[0].numpy(), want_T)
     assert abs(float(got_inl[0]) - float(want_inl)) <= 2.0
     n_src = float(SM[0].sum())
