@@ -77,7 +77,28 @@ Builds the hand-written kernels from the sources in the checkout (one
   0.05 m); ``visual_stereo``, two ``StereoFrontEnd``s from
   ``make_map_manager`` exchanging a keyframe (the CPU's flags, within 0.12
   m of the truth), then the mission's stereo variant at 3 x 20 through the
-  same node stack (the same limits).
+  same node stack (the same limits);
+* phase ``deploy`` — the deployment entry points: ``stereo_replay``, the
+  port's ``ReplayDriver`` over two KITTI-layout stereo sequences (2 x 20
+  frames at 1241 x 376 with sequence 00's published camera, written by
+  ``write_kitti_sequence`` through the port's own PNG codec) with
+  ``TinyImageDescriptor``, every robot's detection and back end snapshot
+  halfway and restored into fresh CUDA nodes, the replay then going on
+  there, and the same snapshot loaded into CPU nodes (limits: a verified
+  inter-robot loop, robot 0's ATE <= odometry ATE + 0.05 m, K1 launched
+  before and after the restore, keyframes and fixed edges growing after it,
+  the CPU nodes' banks and best rows equal); ``lidar_replay``, the
+  ``LidarReplayDriver`` over two ``velodyne/*.bin`` sequences of 2 x 20
+  sweeps of 120,000 points (one HDL-64E sweep) with the scan-context banks
+  on the fused stage 1 and the experiment logger on robot 0 (the same
+  limits, K1 launched through the scan-context bank, ``metrics.csv`` and
+  both g2o dumps written with a finite ``graph_error``), then a printed
+  probe of the verification on ground-dominated 120,000-point clouds;
+  ``swarm_processes``, ``tools/multi_process_swarm.run_swarm`` with 3 robot
+  processes on the card for 20 s over the TCP hub (every robot exits 0
+  with fixed edges, an optimized result and K1 launches, and has imported
+  neither ``jax`` nor ``cslam_tpu``; the transport refuses a frame that
+  holds a tensor).
 
 Every kernel's launch counter is set to 0 just before each main-path run and
 read just after; a kernel that did not launch fails the run. Prints the
@@ -1589,11 +1610,12 @@ _VIS_CAM = {"fx": 300.0, "fy": 300.0, "cx": 160.0, "cy": 120.0}
 _VIS_ROT_TOL_DEG, _VIS_TRANS_TOL_M = 1.0, 0.05   # visual_verify: truth
 
 
-def _vis_scene(seed, n=None):
+def _vis_scene(seed, n=None, size=(_VIS_W, _VIS_H)):
     """``visual_e2e_scale_bench.make_scene``: a textured landmark field with
     a scene-distinct global appearance (background ramp, ambient level,
     texture band, stamp size and count), so that untrained GeM pooling
-    separates scenes. Returns (points, textures, background, half size)."""
+    separates scenes. Returns (points, textures, background, half size);
+    the background is ``size`` = (width, height) pixels."""
     import numpy as np
     rng = np.random.default_rng(seed)
     if n is None:
@@ -1601,8 +1623,9 @@ def _vis_scene(seed, n=None):
     pts = np.stack([rng.uniform(-5, 5, n), rng.uniform(-3, 3, n),
                     rng.uniform(4, 11, n)], axis=1)
     a0, a1 = rng.integers(0, 150, 2)
-    bg = ((a0 + (a1 - a0) * np.linspace(0, 1, _VIS_H))[:, None]
-          * np.ones((1, _VIS_W)))
+    width, height = size
+    bg = ((a0 + (a1 - a0) * np.linspace(0, 1, height))[:, None]
+          * np.ones((1, width)))
     lo = int(rng.integers(30, 150))
     hi = lo + int(rng.integers(40, 105))
     half = int(rng.integers(3, 8))
@@ -1622,14 +1645,17 @@ def _vis_test_world(seed, n=120):
     return pts, tex, np.full((_VIS_H, _VIS_W), 10, np.uint8), 5
 
 
-def _vis_render(scene, pose):
+def _vis_render(scene, pose, cam=None):
     """``visual_e2e_scale_bench.render``: painter's-algorithm stamps in the
-    camera at ``pose``; returns (grayscale image, metric depth)."""
+    camera at ``pose`` (``cam``: fx, fy, cx, cy; the bench's by default),
+    at the size of the scene's background; returns (grayscale image,
+    metric depth)."""
     import numpy as np
     pts, tex, bg, half = scene
-    fx, fy, cx, cy = (_VIS_CAM[k] for k in ("fx", "fy", "cx", "cy"))
+    fx, fy, cx, cy = ((cam or _VIS_CAM)[k] for k in ("fx", "fy", "cx", "cy"))
+    height, width = bg.shape
     img = bg.copy()
-    dep = np.zeros((_VIS_H, _VIS_W), np.float32)
+    dep = np.zeros((height, width), np.float32)
     inv = np.linalg.inv(pose)
     cpts = pts @ inv[:3, :3].T + inv[:3, 3]
     for i in np.argsort(-cpts[:, 2]):
@@ -1638,7 +1664,7 @@ def _vis_render(scene, pose):
             continue
         u = int(round(fx * x / z + cx))
         v = int(round(fy * y / z + cy))
-        if not (20 <= u < _VIS_W - 20 and 20 <= v < _VIS_H - 20):
+        if not (20 <= u < width - 20 and 20 <= v < height - 20):
             continue
         img[v - half:v + half + 1, u - half:u + half + 1] = \
             tex[i].astype(np.uint8)
@@ -2021,14 +2047,493 @@ def phase_visual(results, failures, robots=3, steps=40):
     out["visual_stereo"] = _visual_stereo(failures)
 
 
+# -- phase deploy -----------------------------------------------------------
+# KITTI odometry sequence 00's published calibration (calib.txt: P0, and P1's
+# baseline) and image size; one Velodyne HDL-64E sweep is about 120,000 points
+_KITTI_CAM = {"fx": 718.856, "fy": 718.856, "cx": 607.1928, "cy": 185.2157}
+_KITTI_BASELINE = 0.5372
+_KITTI_SIZE = (1241, 376)
+_HDL64_POINTS = 120000
+
+
+def _deploy_track(robots, frames, scenes, offset):
+    """Scene visited and ground-truth pose of each robot's frames: robot r
+    sees scene (i + 5 r) mod ``scenes`` at its frame i (so every robot
+    revisits the places the others saw), from ``offset(r)`` off the scene's
+    origin on a 7 m grid (the missions' layout)."""
+    grid = [_pose_xyz_yaw(7.0 * (s % 8), 7.0 * (s // 8))
+            for s in range(scenes)]
+    return {r: [((i + 5 * r) % scenes, grid[(i + 5 * r) % scenes] @ offset(r))
+                for i in range(frames)] for r in range(robots)}, grid
+
+
+def _kitti_stereo_sequences(root, robots=2, frames=20, scenes=20,
+                            landmarks=300):
+    """Two KITTI-layout stereo sequences (``image_0``/``image_1`` grayscale
+    PNGs at 1241 x 376, ``calib.txt`` with sequence 00's P0 and P1,
+    ``poses.txt``, ``times.txt``), written by the port's
+    ``write_kitti_sequence``: rendered landmark scenes
+    (``_vis_scene``/``_vis_render`` at KITTI's camera). Returns the
+    directories."""
+    import os
+
+    from cslam_tpu_torch.runtime.replay import write_kitti_sequence
+    track, grid = _deploy_track(
+        robots, frames, scenes,
+        lambda r: _pose_xyz_yaw(0.25 * r, 0.1 * r, 0.1 * r, yaw=0.04 * r))
+    world = []
+    for s in range(scenes):
+        pts, tex, bg, half = _vis_scene(3000 + s, n=landmarks,
+                                        size=_KITTI_SIZE)
+        world.append((pts @ grid[s][:3, :3].T + grid[s][:3, 3], tex, bg,
+                       half))
+    right = _pose_xyz_yaw(_KITTI_BASELINE, 0.0)
+    dirs = []
+    for r in range(robots):
+        lefts, rights, poses = [], [], []
+        for s, pose in track[r]:
+            lefts.append(_vis_render(world[s], pose, _KITTI_CAM)[0])
+            rights.append(_vis_render(world[s], pose @ right, _KITTI_CAM)[0])
+            poses.append(pose)
+        d = os.path.join(root, f"stereo_{r:02d}")
+        write_kitti_sequence(d, lefts, rights, poses, baseline=_KITTI_BASELINE,
+                             times=[0.1 * i for i in range(frames)],
+                             **_KITTI_CAM)
+        dirs.append(d)
+    return dirs
+
+
+def _parked_cars(rng, n_cars, n_points):
+    """Clutter: ``n_cars`` boxes of 4.4 x 1.8 x 1.5 m within 12 m of the
+    sensor, at random yaws, ``n_points`` in all on their faces."""
+    import numpy as np
+    half = np.array([2.2, 0.9, 0.75])
+    out = []
+    for n in np.diff(np.linspace(0, n_points, n_cars + 1).astype(int)):
+        u = rng.uniform(-1, 1, (n, 3))
+        face = rng.integers(0, 3, n)
+        u[np.arange(n), face] = np.where(rng.random(n) < 0.5, -1.0, 1.0)
+        u *= half
+        yaw = rng.uniform(0, np.pi)
+        rot = np.array([[np.cos(yaw), -np.sin(yaw)],
+                        [np.sin(yaw), np.cos(yaw)]])
+        xy = u[:, :2] @ rot.T + rng.uniform(-12, 12, 2)
+        out.append(np.concatenate([xy, u[:, 2:] + half[2]], 1))
+    return np.concatenate(out)
+
+
+def _kitti_lidar_sequences(root, robots=2, frames=20, scenes=20,
+                           points=_HDL64_POINTS, scene_points=4096,
+                           n_cars=4):
+    """Two KITTI-layout lidar sequences (``velodyne/*.bin`` sweeps of
+    ``points`` points, x/y/z/intensity float32; ``poses.txt``). A scene is
+    ``_scene_cloud`` at ``scene_points`` (the lidar bench's width): its
+    walls, ground returns and pillars are the surfaces a sweep samples.
+    Each sweep returns (``points`` - 1,200) // ``scene_points`` samples
+    within 3 cm of every scene point, seen from the robot's pose with 3 cm
+    noise, plus ``_parked_cars`` (``n_cars`` boxes, a new draw every sweep)
+    filling it to ``points``. Returns the directories."""
+    import os
+
+    import numpy as np
+
+    from cslam_tpu_torch.runtime.replay import write_kitti_sequence
+    per_point = (points - 1200) // scene_points
+    n_clutter = points - per_point * scene_points
+    track, grid = _deploy_track(
+        robots, frames, scenes, lambda r: _pose_at(0.3 * r, 0.2 * r,
+                                                   yaw=0.1 * r))
+    world = [_scene_cloud(2000 + s, scene_points) @ grid[s][:3, :3].T
+             + grid[s][:3, 3] for s in range(scenes)]
+    rng = np.random.default_rng(5)
+    dirs = []
+    for r in range(robots):
+        scans, poses = [], []
+        for s, pose in track[r]:
+            dense = np.repeat(world[s], per_point, 0)
+            dense += rng.normal(scale=0.03, size=dense.shape)
+            scan = np.concatenate([_observe(dense, pose, rng),
+                                   _parked_cars(rng, n_cars, n_clutter)])
+            scans.append(np.concatenate(
+                [scan, rng.random((points, 1))], 1).astype(np.float32))
+            poses.append(pose)
+        d = os.path.join(root, f"lidar_{r:02d}")
+        write_kitti_sequence(d, None, None, poses, scans=scans,
+                             times=[0.1 * i for i in range(frames)])
+        dirs.append(d)
+    return dirs
+
+
+def _dense_ground_probe(device, voxel=0.4, points=_HDL64_POINTS, pairs=4):
+    """What the verification does with ``_scene_cloud`` drawn at the full
+    sweep size, whose ground scatter then fills about 95% of the 0.4 m
+    voxels (13,600 of 14,400): the keyframe cloud is cut to 1,024 points
+    by a stride (``registration.pad_cloud``), as in the JAX package. Each
+    of ``pairs`` scenes is verified against itself from another pose (a
+    true pair) and against the next scene (a false pair). No limit: a
+    known weakness, printed and recorded."""
+    import numpy as np
+
+    from cslam_tpu_torch.ops import registration
+    rng = np.random.default_rng(9)
+    pa, pb = _pose_at(0.0, 0.0), _pose_at(0.3, 0.2, yaw=0.1)
+    truth = np.linalg.inv(pa) @ pb
+    out = {"voxel_m": voxel, "points": points, "voxels": [],
+           "true_verified": 0, "true_errors_m": [], "false_verified": 0}
+    for s in range(pairs):
+        a, b, c = (registration.voxel_downsample(_observe(
+            _scene_cloud(seed, points), pose, rng), voxel) for seed, pose in (
+                (2000 + s, pa), (2000 + s, pb), (2001 + s, pb)))
+        out["voxels"].append(len(a))
+        T, ok = registration.compute_transform(a, b, voxel, 40, device=device)
+        if ok:        # the error in either direction of the transform
+            out["true_verified"] += 1
+            out["true_errors_m"].append(float(min(
+                np.linalg.norm(M[:3, 3] - truth[:3, 3])
+                for M in (np.asarray(T), np.linalg.inv(T)))))
+        out["false_verified"] += int(registration.compute_transform(
+            a, c, voxel, 40, device=device)[1])
+    print("  dense_ground_probe " + json.dumps(out))
+    return out
+
+
+def _loop_errors(driver):
+    """Translation error (m) of every verified inter-robot loop that the
+    robots' back ends hold, against the sequences' ground truth."""
+    import numpy as np
+    errors = []
+    for robot in driver.robots:
+        for edges in robot.backend.inter_robot_loop_closures.values():
+            for e in edges:
+                (ra, ka), (rb, kb) = e.key_from.as_tuple(), e.key_to.as_tuple()
+                truth = (np.linalg.inv(driver.robots[ra].kf_gt[ka])
+                         @ driver.robots[rb].kf_gt[kb])
+                errors.append(float(np.linalg.norm(
+                    np.asarray(e.measurement)[:3, 3] - truth[:3, 3])))
+    return errors
+
+
+def _replay_record(driver, wall, launches, spans):
+    """Per-robot outcome of a replay and its ATE; the verified loops'
+    errors against the ground truth."""
+    per_robot = []
+    for rid, robot in enumerate(driver.robots):
+        odo, opt = driver.ate(rid)
+        per_robot.append({
+            "robot": rid, "keyframes": robot.frontend.nb_local_keyframes,
+            "fixed_edges": len(
+                robot.detection.lcm.candidate_selector.fixed_edges),
+            "inter_lc": sum(len(v) for v in
+                            robot.backend.inter_robot_loop_closures.values()),
+            "optimizations": robot.backend.optimization_count,
+            "ate_odom": odo, "ate_opt": opt})
+    errors = sorted(_loop_errors(driver))
+    return {"wall_s": wall, "k1_launches": launches, "robots": per_robot,
+            "loops": len(errors),
+            "loops_within_0.1m": sum(e <= 0.1 for e in errors),
+            "loop_error_median_m": (errors[len(errors) // 2] if errors
+                                    else None),
+            "spans": spans}
+
+
+def _replay_checks(tag, rec, failures, device):
+    r0 = rec["robots"][0]
+    if sum(r["inter_lc"] for r in rec["robots"]) < 1:
+        failures.append(f"{tag}: no verified inter-robot loop")
+    if not r0["ate_opt"] <= r0["ate_odom"] + 0.05:
+        failures.append(f"{tag}: optimized ATE {r0['ate_opt']} > odometry "
+                        f"ATE {r0['ate_odom']} + 0.05")
+    if device != "cpu" and rec["k1_launches"] < 1:
+        failures.append(f"{tag}: K1 not launched")
+
+
+def _print_replay(tag, rec):
+    print(f"  {tag}: {rec['wall_s']:.1f} s wall, {rec['k1_launches']} K1 "
+          f"launches, {rec['loops']} verified loops "
+          f"({rec['loops_within_0.1m']} within 0.1 m of the truth, median "
+          f"error {rec['loop_error_median_m']} m)")
+    for r in rec["robots"]:
+        print("  " + json.dumps(r))
+
+
+_STEREO_OVERRIDES = {
+    "frontend.similarity_threshold": 0.95,
+    "frontend.pnp_min_inliers": 10,
+    "frontend.inter_robot_detection_period_sec": 1.0,
+    "frontend.detection_publication_period_sec": 0.5,
+    "backend.pose_graph_optimization_start_period_ms": 1500,
+}
+#: the stereo front end's state that a snapshot leaves out (it is the
+#: sensor process's, which keeps running while detection and back end
+#: restart); with the replay's own cursor and ground truth
+_FRONT_END_STATE = ("features", "nb_local_keyframes", "previous_features",
+                    "log_comm_bytes")
+_REPLAY_STATE = ("cursor", "kf_gt", "odom_pose", "prev_gt")
+
+
+def _deploy_stereo(failures, root, device="cuda", frames=20, dt=0.25,
+                   extra_steps=30):
+    """Part ``stereo_replay``: the port's ``ReplayDriver`` over two
+    KITTI-layout stereo sequences at 1241 x 376 (sequence 00's camera),
+    ``TinyImageDescriptor`` (the tool's default), on ``device``. Halfway
+    through, every robot's detection front end and back end are snapshot
+    (``utils.snapshot``) and restored into fresh nodes on the same device,
+    and the replay goes on there; the same snapshot is then loaded into
+    CPU nodes. Limits: at least one verified inter-robot loop; robot 0's
+    optimized ATE <= odometry ATE + 0.05 m; K1 launched (on CUDA), and
+    again after the restore; keyframes and fixed edges grow after the
+    restore; the CPU nodes hold the same banks and find the same rows."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from cslam_tpu_torch import native
+    from cslam_tpu_torch.ops import nns
+    from cslam_tpu_torch.runtime.replay import (KittiSequence, ReplayDriver,
+                                                TinyImageDescriptor)
+    from cslam_tpu_torch.utils import profiling
+    from cslam_tpu_torch.utils.snapshot import restore_robot, snapshot_robot
+    t0 = time.perf_counter()
+    dirs = _kitti_stereo_sequences(root, frames=frames)
+    written = time.perf_counter() - t0
+    seqs = [KittiSequence(d) for d in dirs]
+
+    def driver(dev):
+        return ReplayDriver(seqs, odom_noise=0.05, seed=0,
+                            config_overrides=_STEREO_OVERRIDES,
+                            model=TinyImageDescriptor(), device=dev)
+    native.available()                       # builds the library once
+    first = driver(device)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    profiling.reset_spans()
+    nns.launches = 0
+    t0 = time.perf_counter()
+    while first.robots[0].cursor < frames // 2:      # the main path
+        first.step(dt)
+    paths = [os.path.join(root, f"r{rid}.snapshot")
+             for rid in range(len(seqs))]
+    for robot, path in zip(first.robots, paths):
+        snapshot_robot(robot.detection, robot.backend, path)
+    before = {"launches": nns.launches,
+              "keyframes": first.robots[0].detection.lcm.local_nnsm.n,
+              "fixed_edges": sum(
+                  len(r.detection.lcm.candidate_selector.fixed_edges)
+                  for r in first.robots),
+              "sim_s": first.clock.now()}
+    second = driver(device)
+    for old, new, path in zip(first.robots, second.robots, paths):
+        restore_robot(new.detection, new.backend, path)
+        for name in _FRONT_END_STATE:
+            setattr(new.frontend, name, getattr(old.frontend, name))
+        for name in _REPLAY_STATE:
+            setattr(new, name, getattr(old, name))
+    second.rng = first.rng
+    second.clock.advance(first.clock.now())
+    second.run(extra_steps=extra_steps, dt=dt)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = nns.launches
+    spans = {k: v for k, v in profiling.spans().items()
+             if k.split(".")[0] in ("rgbd", "lcd", "nns")
+             or k == "pgo.optimize"}
+    print(profiling.report())
+    rec = _replay_record(second, wall, launches, spans)
+    after = {"launches": launches - before["launches"],
+             "keyframes": second.robots[0].detection.lcm.local_nnsm.n,
+             "fixed_edges": sum(
+                 len(r.detection.lcm.candidate_selector.fixed_edges)
+                 for r in second.robots)}
+    # the same file into CPU nodes
+    cpu = driver("cpu").robots[0]
+    restore_robot(cpu.detection, cpu.backend, paths[0])
+    bank, ref = cpu.detection.lcm.local_nnsm, first.robots[0].detection.lcm
+    probe = ref.local_nnsm.data[:ref.local_nnsm.n]
+    cpu_same = (bank.n == ref.local_nnsm.n
+                and np.array_equal(bank.data[:bank.n], probe)
+                and [bank.search_best(q)[0] for q in probe]
+                == [ref.local_nnsm.search_best(q)[0] for q in probe]
+                and set(cpu.backend.odometry_pose_estimates)
+                == set(first.robots[0].backend.odometry_pose_estimates))
+    rec.update({
+        "frame": f"{_KITTI_SIZE[0]}x{_KITTI_SIZE[1]}", "camera": _KITTI_CAM,
+        "baseline_m": _KITTI_BASELINE, "frames_per_robot": frames,
+        "write_s": written, "snapshot_bytes": [os.path.getsize(p)
+                                               for p in paths],
+        "before_restore": before, "after_restore": after,
+        "cpu_restore_same": cpu_same})
+    _print_replay("stereo_replay", rec)
+    print("  snapshot " + json.dumps({k: rec[k] for k in (
+        "snapshot_bytes", "before_restore", "after_restore",
+        "cpu_restore_same")}))
+    _replay_checks("stereo replay", rec, failures, device)
+    if not native.available():
+        failures.append("stereo replay: the C++ feature library is not "
+                        "loaded")
+    if device != "cpu" and after["launches"] < 1:
+        failures.append("stereo replay: K1 not launched after the restore")
+    if not (after["keyframes"] > before["keyframes"]
+            and after["fixed_edges"] > before["fixed_edges"]):
+        failures.append(f"stereo replay: no growth after the restore "
+                        f"({before} -> {after})")
+    if not cpu_same:
+        failures.append("stereo replay: the snapshot restored into CPU "
+                        "nodes differs")
+    return rec
+
+
+_LIDAR_OVERRIDES = {
+    "frontend.similarity_threshold": 0.7,
+    "frontend.keyframe_generation_ratio_distance": 0.5,
+    "frontend.voxel_size": 0.4,
+    "frontend.registration_min_inliers": 40,
+    "frontend.inter_robot_detection_period_sec": 1.0,
+    "frontend.detection_publication_period_sec": 0.5,
+    "frontend.max_candidate_pool": 2048,
+    "frontend.harvest_ready_gate": True,
+    "frontend.scancontext_fused_stage1": True,
+    "frontend.bank_initial_capacity": 4096,
+    "backend.pose_graph_optimization_start_period_ms": 1500,
+    "evaluation.enable_logs": True,
+}
+
+
+def _deploy_lidar(failures, root, device="cuda", frames=20,
+                  points=_HDL64_POINTS, dt=0.25, extra_steps=30):
+    """Part ``lidar_replay``: the port's ``LidarReplayDriver`` over two
+    KITTI-layout velodyne sequences of ``points``-point sweeps, with the
+    scan-context banks on the fused stage 1 (K1 on the augmented ring
+    keys; ``bank_initial_capacity`` 4096) and the experiment logger on
+    robot 0's back end. Limits: those of the stereo replay; K1 launched
+    (through the scan-context bank: this path has no visual bank); the
+    logger wrote ``metrics.csv`` and both g2o dumps, with a finite
+    ``graph_error``."""
+    import csv
+    import os
+
+    import torch
+
+    from cslam_tpu_torch.evaluation import ExperimentLogger
+    from cslam_tpu_torch.ops import nns
+    from cslam_tpu_torch.runtime.replay import KittiSequence, LidarReplayDriver
+    from cslam_tpu_torch.utils import profiling
+    t0 = time.perf_counter()
+    dirs = _kitti_lidar_sequences(root, frames=frames, points=points)
+    written = time.perf_counter() - t0
+    log_root = os.path.join(root, "logs")
+    driver = LidarReplayDriver(
+        [KittiSequence(d) for d in dirs], odom_noise=0.05, seed=0,
+        config_overrides={**_LIDAR_OVERRIDES,
+                          "evaluation.log_folder": log_root}, device=device)
+    robot0 = driver.robots[0]
+    # the JAX package's replay builds no logger; a deployment attaches one
+    robot0.backend.logger = ExperimentLogger(robot0.ctx, log_root,
+                                             device=device)
+    robot0.frontend.warmup(pair_tiers=(1, 8))
+    if device != "cpu":
+        torch.cuda.synchronize()
+    profiling.reset_spans()
+    nns.launches = 0
+    t0 = time.perf_counter()
+    driver.run(extra_steps=extra_steps, dt=dt)       # the main path
+    if device != "cpu":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = nns.launches
+    spans = {k: v for k, v in profiling.spans().items()
+             if k.split(".")[0] in ("lidar", "verify", "lcd", "nns")
+             or k == "pgo.optimize"}
+    print(profiling.report())
+    rec = _replay_record(driver, wall, launches, spans)
+    fused = [b._fused_stage1_ok() for b in
+             robot0.detection.lcm.other_robots_nnsm.values()]
+    folder = robot0.backend.logger.folder
+    files = sorted(os.listdir(folder))
+    with open(os.path.join(folder, "metrics.csv"), newline="") as f:
+        rows = list(csv.DictReader(f))
+    graph_error = float(rows[-1]["graph_error"]) if rows else float("nan")
+    rec.update({"points_per_sweep": points, "frames_per_robot": frames,
+                "write_s": written, "fused_stage1": fused,
+                "log_files": len(files), "metrics_rows": len(rows),
+                "graph_error": graph_error})
+    _print_replay("lidar_replay", rec)
+    print("  logger " + json.dumps({"files": files[:4] + ["..."],
+                                    "rows": len(rows),
+                                    "graph_error": graph_error}))
+    _replay_checks("lidar replay", rec, failures, device)
+    rec["dense_ground_probe"] = _dense_ground_probe(device)
+    if device != "cpu" and not all(fused):
+        failures.append("lidar replay: a scan-context bank is not on the "
+                        "fused stage 1")
+    if not ("metrics.csv" in files
+            and any(f.startswith("initial_global") for f in files)
+            and any(f.startswith("optimized_global") for f in files)):
+        failures.append(f"lidar replay: logger files missing ({files})")
+    import math
+    if not math.isfinite(graph_error):
+        failures.append(f"lidar replay: graph_error {graph_error}")
+    return rec
+
+
+def _deploy_swarm(failures, device="cuda", robots=3, duration=20.0):
+    """Part ``swarm_processes``: ``tools/multi_process_swarm.run_swarm``,
+    the hub here and one robot per OS process, every robot on the one
+    card, for ``duration`` s of wall clock. Limits: every robot process
+    exits 0 with fixed edges > 0, K1 launched (on CUDA), at least one
+    optimized result received (only the elected robot of a group solves;
+    the swarm solved at least once), and neither ``jax`` nor ``cslam_tpu``
+    in its ``sys.modules``; no frame carried a tensor (the transport
+    refuses one, which would fail the robot)."""
+    from cslam_tpu_torch.tools.multi_process_swarm import run_swarm
+    t0 = time.perf_counter()
+    results = run_swarm(robots=robots, duration=duration, device=device)
+    wall = time.perf_counter() - t0
+    rec = {"robots": results, "wall_s": wall, "duration_s": duration,
+           "k1_launches": sum(r["k1_launches"] for r in results),
+           "optimizations": sum(r["optimizations"] for r in results)}
+    print(f"  swarm_processes {robots} x {duration:.0f} s: {wall:.1f} s "
+          f"wall, {rec['k1_launches']} K1 launches in the robots")
+    for r in results:
+        print("  " + json.dumps(r))
+    if rec["optimizations"] < 1:
+        failures.append("swarm processes: no optimization")
+    for r in results:
+        tag = f"swarm processes: robot {r['robot']}"
+        if r["fixed_edges"] < 1:
+            failures.append(f"{tag}: no fixed edges")
+        if r["optimized_results_received"] < 1:
+            failures.append(f"{tag}: no optimized result")
+        if device != "cpu" and r["k1_launches"] < 1:
+            failures.append(f"{tag}: K1 not launched")
+        if r["foreign_modules"]:
+            failures.append(f"{tag}: imported {r['foreign_modules']}")
+        if r["device"] != str(device):
+            failures.append(f"{tag}: ran on {r['device']}")
+    return rec
+
+
+def phase_deploy(results, failures, device="cuda"):
+    """The deployment entry points on the card: ``stereo_replay`` (with a
+    snapshot and restore halfway), ``lidar_replay`` (with the experiment
+    logger) and ``swarm_processes``."""
+    import tempfile
+    out = results["deploy"] = {}
+    with tempfile.TemporaryDirectory(prefix="cslam_deploy_") as root:
+        out["stereo_replay"] = _deploy_stereo(failures, root, device)
+        out["lidar_replay"] = _deploy_lidar(failures, root, device)
+    out["swarm_processes"] = _deploy_swarm(failures, device)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument(
         "--phases",
         default="bank_scan,swarm,swarm_floored,large_tiers,frontend,lidar,"
-                "visual",
+                "visual,deploy",
         help="comma-separated subset of bank_scan,swarm,swarm_floored,"
-             "large_tiers,frontend,lidar,visual")
+             "large_tiers,frontend,lidar,visual,deploy")
     args = parser.parse_args()
     phases = args.phases.split(",")
 
@@ -2060,7 +2565,8 @@ def main() -> int:
              "swarm": phase_swarm, "swarm_floored": phase_swarm_floored,
              "large_tiers": phase_large_tiers,
              "lidar": phase_lidar,
-             "visual": phase_visual}[phase](results, failures)
+             "visual": phase_visual,
+             "deploy": phase_deploy}[phase](results, failures)
         except Exception as exc:  # noqa: BLE001 - report, then fail the run
             import traceback
             traceback.print_exc()
@@ -2082,15 +2588,20 @@ def main() -> int:
         visual.get("visual_mission", {}).get("k1_launches", 0)
         + visual.get("visual_stereo", {}).get("mission", {}).get(
             "k1_launches", 0))
+    deploy = results.get("deploy", {})
+    deploy_launches = sum(
+        deploy.get(part, {}).get("k1_launches", 0)
+        for part in ("stereo_replay", "lidar_replay", "swarm_processes"))
     kernel = {
         "name": "bank_scan", "route": "cuda",
         "source": "cslam_tpu_torch/csrc/bank_scan.cu",
         "replaces": "cslam_tpu/ops/nns_pallas.py:177",
         "launches": results.get("swarm", {}).get(
             "launches", f32.get("launches_main_path", 0)) + lidar_launches
-        + visual_launches,
+        + visual_launches + deploy_launches,
         "launches_lidar": lidar_launches,
         "launches_visual": visual_launches,
+        "launches_deploy": deploy_launches,
         "max_abs_err": max([c.get("max_abs_err", 0.0) for c in
                             f32.get("cases", []) + bf16.get("cases", [])]
                            + [search.get(f"k1_b{b}", {}).get(

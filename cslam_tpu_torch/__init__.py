@@ -16,15 +16,16 @@ is plain PyTorch.
 
 __version__ = "0.1.0"
 
-import torch
-
 from cslam_tpu_torch.types import Edge, EdgeInterRobot  # noqa: F401
 
 
-def resolve_device(device=None) -> torch.device:
+def resolve_device(device=None) -> "torch.device":  # noqa: F821
     """The device an entry point runs on: CUDA unless the caller asks for
     another. Never falls back silently: the default device on a machine
-    without a GPU is an error."""
+    without a GPU is an error. (``torch`` is imported here, not with the
+    package, so that host-only modules such as the transport start
+    without it.)"""
+    import torch
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(

@@ -11,9 +11,22 @@ reference processes. Device code never blocks on this plane.
 
 from cslam_tpu_torch.runtime.bus import MessageBus, RobotContext  # noqa: F401
 from cslam_tpu_torch.runtime.clock import VirtualClock, WallClock  # noqa: F401
-from cslam_tpu_torch.runtime.backend_node import DecentralizedPGO  # noqa: F401
-from cslam_tpu_torch.runtime.lcd_node import DetectionFrontEnd  # noqa: F401
-from cslam_tpu_torch.runtime.lidar_frontend import LidarFrontEnd  # noqa: F401
-from cslam_tpu_torch.runtime.rgbd_frontend import (  # noqa: F401
-    CameraModel, RGBDFrontEnd, StereoFrontEnd)
-from cslam_tpu_torch.runtime.map_manager import make_map_manager  # noqa: F401
+
+# the nodes import torch; they load at first use, so that the host-only
+# modules (bus, clock, transport) start without it
+_NODES = {"DecentralizedPGO": "backend_node",
+          "DetectionFrontEnd": "lcd_node",
+          "LidarFrontEnd": "lidar_frontend",
+          "CameraModel": "rgbd_frontend", "RGBDFrontEnd": "rgbd_frontend",
+          "StereoFrontEnd": "rgbd_frontend",
+          "make_map_manager": "map_manager"}
+__all__ = ["MessageBus", "RobotContext", "VirtualClock", "WallClock",
+           *_NODES]
+
+
+def __getattr__(name):
+    if name in _NODES:
+        import importlib
+        module = importlib.import_module(f"{__name__}.{_NODES[name]}")
+        return getattr(module, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -16,6 +16,8 @@ the caller passes another).
 """
 from __future__ import annotations
 
+import os
+import tempfile
 from dataclasses import dataclass, field
 from typing import List, Optional, Sequence, Tuple
 
@@ -247,12 +249,15 @@ class SwarmSimulator:
             detection = DetectionFrontEnd(ctx,
                                           model=IdentityDescriptorModel(),
                                           device=self.device)
+            logger = None
             if params.get("evaluation.enable_logs", False):
-                raise NotImplementedError(
-                    "evaluation.enable_logs needs the experiment logger, not "
-                    "ported yet (ROADMAP.md item 13)")
+                from cslam_tpu_torch.evaluation.logger import ExperimentLogger
+                logger = ExperimentLogger(
+                    ctx, params.get("evaluation.log_folder", os.path.join(
+                        tempfile.gettempdir(), "cslam_logs")),
+                    device=self.device)
             backend = DecentralizedPGO(
-                ctx, synchronous_optimization=synchronous_pgo,
+                ctx, logger=logger, synchronous_optimization=synchronous_pgo,
                 device=self.device)
             self.robots.append(SimRobot(ctx, frontend, detection, backend))
 

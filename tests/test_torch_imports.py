@@ -98,6 +98,36 @@ def test_visual_modules_import_without_jax():
     assert out.stdout.split() == ["RGBDFrontEnd", "None"]
 
 
+def test_deployment_modules_import_without_jax():
+    """The deployment slice's modules by name: the experiment logger,
+    snapshots, the PNG codec, the transport, the replay drivers and the
+    two tools; the transport, like the JAX package's, starts without
+    importing torch."""
+    code = (
+        "import sys, importlib\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['cslam_tpu'] = None\n"
+        "from cslam_tpu_torch.runtime.transport import NetworkBus, \\\n"
+        "    TransportHub\n"
+        "light = 'torch' in sys.modules\n"
+        "for name in ('evaluation.logger', 'utils.snapshot', 'utils.png',\n"
+        "             'utils.host_pickle', 'runtime.transport',\n"
+        "             'runtime.replay', 'tools.kitti_replay',\n"
+        "             'tools.multi_process_swarm'):\n"
+        "    importlib.import_module('cslam_tpu_torch.' + name)\n"
+        "from cslam_tpu_torch.evaluation import ExperimentLogger\n"
+        "from cslam_tpu_torch.runtime.replay import ReplayDriver, \\\n"
+        "    LidarReplayDriver\n"
+        "print(light, ExperimentLogger.__name__,\n"
+        "      LidarReplayDriver.__mro__[1].__name__, NetworkBus.__mro__[1]\n"
+        "      .__name__, TransportHub.__name__)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["False", "ExperimentLogger", "ReplayDriver",
+                                  "MessageBus", "TransportHub"]
+
+
 def test_source_scan_finds_no_jax_import():
     files = sorted((REPO / "cslam_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
@@ -128,6 +158,10 @@ def _entry_points(params):
                                          RGBDFrontEnd, RobotContext,
                                          StereoFrontEnd, VirtualClock,
                                          make_map_manager)
+
+    from cslam_tpu_torch.evaluation import ExperimentLogger
+    from cslam_tpu_torch.runtime.replay import LidarReplayDriver, ReplayDriver
+    from cslam_tpu_torch.tools.multi_process_swarm import run_swarm
 
     def ctx(sensor="rgbd"):
         return RobotContext(MessageBus(), VirtualClock(), 0, {
@@ -166,6 +200,10 @@ def _entry_points(params):
             vreg.verify_keyframe_pairs_projective([], 300.0, 300.0, 160.0,
                                                   120.0),
         "warmup_verification": lambda: vreg.warmup_verification((1,)),
+        "ExperimentLogger": lambda: ExperimentLogger(ctx(), "unused"),
+        "ReplayDriver": lambda: ReplayDriver([]),
+        "LidarReplayDriver": lambda: LidarReplayDriver([]),
+        "run_swarm": lambda: run_swarm(robots=1, duration=0.0),
     }
 
 
@@ -175,7 +213,8 @@ def _entry_points(params):
     "entry", "ScanContextBank", "ScanContext", "compute_transform",
     "RGBDFrontEnd", "StereoFrontEnd", "make_map_manager", "gnc_align",
     "gnc_align_batch", "gnc_pnp_batch", "verify_keyframe_pairs",
-    "verify_keyframe_pairs_projective", "warmup_verification"])
+    "verify_keyframe_pairs_projective", "warmup_verification",
+    "ExperimentLogger", "ReplayDriver", "LidarReplayDriver", "run_swarm"])
 def test_default_device_without_gpu_raises(monkeypatch, name):
     from helpers import matching_params
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
