@@ -72,20 +72,25 @@ Builds the hand-written kernels from the sources in the checkout (one
   unfused (stage 1 ``euclidean_topk``) and fused (stage 1 = K1 on the
   augmented ring keys), the best rows equal and K1 bit for bit with its
   plain version there, with survivors per query; ``verify``, one 8-pair
-  verification chunk at pad_size 1024 (4 revisits with a known yaw and
-  offset within 0.1 m and 1 degree, 4 cross-scene pairs rejected, the
-  flags equal to the CPU's), its time, CUDA kernels and idle share;
-  ``mission``, 3 robots x 40 steps of the bench's mission through the
-  lidar, detection and back-end nodes (at least one verified inter-robot
-  loop, robot 0's optimized ATE <= odometry ATE + 0.05 m), with its spans;
+  verification chunk at pad_size 1024, replayed from its tier's CUDA
+  graph (4 revisits with a known yaw and offset within 0.1 m and 1 degree,
+  4 cross-scene pairs rejected, the flags equal to the CPU's and the
+  outputs to the eager chunk's), its time graphed and eager, CUDA kernels,
+  graph launches, idle share and the graph pool's bytes; ``mission``, 3
+  robots x 40 steps of the bench's mission through the lidar, detection
+  and back-end nodes (at least one verified inter-robot loop, robot 0's
+  optimized ATE <= odometry ATE + 0.05 m, every chunk a replay of a graph
+  the warmup captured), with its spans;
 * phase ``visual`` — the visual (RGB-D / stereo) path at
   ``benchmarks/visual_e2e_scale_bench.py``'s widths: ``visual_verify``, one
   16-pair chunk at ``benchmarks/verification_bench.py``'s widths (512
   correspondence slots, 200 live, 20% outliers) through ``gnc_align_batch``
   and, for the same poses projected through the bench's 320 x 240 camera,
-  through ``gnc_pnp_batch`` (every pair within 1 degree and 0.05 m of the
-  truth, inlier counts equal to the CPU's, no host sync inside a chunk),
-  with times, CUDA kernels, idle share and peak memory; ``visual_mission``,
+  through ``gnc_pnp_batch``, each replayed from its tier's CUDA graph
+  (every pair within 1 degree and 0.05 m of the truth, inlier counts equal
+  to the CPU's and to the eager chunk's, no host sync inside a chunk),
+  with times graphed and eager, CUDA kernels, graph launches, idle share,
+  peak memory and pool bytes; ``visual_mission``,
   3 robots x 40 steps of the bench's rendered mission through
   ``RGBDFrontEnd`` -> ``DetectionFrontEnd`` (CosPlace, the visual bank on
   K1) -> ``DecentralizedPGO`` (the C++ feature library loaded, at least one
@@ -117,7 +122,9 @@ Builds the hand-written kernels from the sources in the checkout (one
   holds a tensor).
 
 Every kernel's launch counter is set to 0 just before each main-path run and
-read just after; a kernel that did not launch fails the run. Prints the
+read just after; a kernel that did not launch fails the run. The missions
+and replays also count the verification graphs' captures and replays
+around their main path: a capture after the warmup fails the run. Prints the
 card's ``name, power.limit``, then one ``{"kernels": [...]}`` line, then, as
 the last line, ``{"ok": true, "device": {...}}``. Any failure exits non-zero
 without the last line. Imports only the port, never JAX.
@@ -197,7 +204,8 @@ def _device_profile(fn, iters: int = 20) -> dict:
     """Per call: the host wall time, the device time of every CUDA kernel
     ``fn`` launches, of the bank scans' scan kernels (``screen_kernel``,
     ``small_kernel``) and merge kernel (``torch.profiler``), the number of
-    CUDA kernels, and the device's idle share of the wall; device times are
+    CUDA kernels and of ``cudaGraphLaunch`` calls (the CUDA-API count),
+    and the device's idle share of the wall; device times are
     ``None`` where the profiler saw none. Run it after every timing: its
     tracing may slow what runs after it."""
     import warnings
@@ -216,8 +224,10 @@ def _device_profile(fn, iters: int = 20) -> dict:
                 fn()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3 / iters
-        kernels = [e for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA]
+        averages = prof.key_averages()
+        kernels = [e for e in averages if e.device_type == DeviceType.CUDA]
+        graph_launches = sum(e.count for e in averages
+                             if e.key == "cudaGraphLaunch") / iters
 
     def ms(pick):
         return sum(e.device_time_total for e in kernels
@@ -225,8 +235,10 @@ def _device_profile(fn, iters: int = 20) -> dict:
     device_ms = ms(lambda key: True)
     if device_ms <= 0:
         return {"wall_ms": wall_ms, "device_ms": None, "idle_share": None,
-                "kernels_per_call": None}
+                "kernels_per_call": None,
+                "graph_launches_per_call": graph_launches}
     return {"wall_ms": wall_ms, "device_ms": device_ms,
+            "graph_launches_per_call": graph_launches,
             "scan_kernel_ms": ms(lambda key: "screen_kernel" in key
                                  or "small_kernel" in key),
             "merge_kernel_ms": ms(lambda key: "merge_kernel" in key),
@@ -1642,14 +1654,101 @@ def _syncs_in(fn):
             if "synchroniz" in str(w.message)]
 
 
+def _graph_vs_eager(tag, graphs, operands, failures, repeats=5, **static):
+    """One chunk through ``graphs`` (a ``utils.tier_graphs.TierGraphs``:
+    the CUDA graph of this key, captured at its first call) and through
+    its eager function on the same device operands. Limits: every output
+    but T equal (inliers and flags), T's largest absolute difference
+    printed (expected 0); no host sync inside a graphed chunk. Then each
+    path's time per chunk (CUDA events, warm) and the graph pool's bytes.
+    Returns (record, graphed call, eager call) for the profiles, which run
+    last."""
+    import torch
+
+    from cslam_tpu_torch.utils import tier_graphs
+    device = operands[0].device
+
+    def graph():
+        return graphs(device, *operands, **static)
+
+    def eager():
+        return graphs.fn(*operands, **static)
+    got, want = graph(), eager()
+    torch.cuda.synchronize()
+    rec = {"max_abs_T_diff_eager": float((got[0] - want[0]).abs().max()),
+           "outputs_equal_eager": [bool(torch.equal(a, b))
+                                   for a, b in zip(got[1:], want[1:])]}
+    if not all(rec["outputs_equal_eager"]):
+        failures.append(f"{tag}: graphed outputs differ from eager "
+                        f"{rec['outputs_equal_eager']}")
+    for name, fn in (("graph", graph), ("eager", eager)):
+        rec[f"{name}_ms_per_chunk"] = _time_ms(fn, repeats, 1)
+    # what switching the mode reports itself is not the chunk's
+    empty = _syncs_in(lambda: None)
+    for name, fn in (("graph", graph), ("eager", eager)):
+        rec[f"{name}_host_syncs"] = [w for w in _syncs_in(fn)
+                                     if w not in empty]
+    if rec["graph_host_syncs"]:
+        failures.append(f"{tag}: host syncs in a graphed chunk "
+                        f"{rec['graph_host_syncs']}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eager()
+    torch.cuda.synchronize()
+    rec["eager_peak_device_mb"] = torch.cuda.max_memory_allocated() / 2 ** 20
+    rec.update(captures=graphs.captures, replays=graphs.replays,
+               graph_pool_bytes=graphs.pool_bytes,
+               shared_pool_bytes=tier_graphs.pool_bytes(device))
+    return rec, graph, eager
+
+
+def _graph_profiles(tag, rec, graph, eager, failures, iters=5):
+    """``torch.profiler`` of a graphed and an eager chunk (after every
+    timing); a graphed chunk must be one ``cudaGraphLaunch``."""
+    rec["graph_profile"] = _device_profile(graph, iters)
+    rec["eager_profile"] = _device_profile(eager, 3)
+    launched = rec["graph_profile"]["graph_launches_per_call"]
+    if launched != 1:
+        failures.append(f"{tag}: {launched} graph launches per chunk, not 1")
+
+
+def _graph_counts():
+    """(captures, replays) of the three graphed verification programs."""
+    from cslam_tpu_torch.ops import registration as reg
+    from cslam_tpu_torch.ops import visual_registration as vreg
+    return {g.name: (g.captures, g.replays) for g in (
+        reg.VERIFY_GRAPHS, vreg.ALIGN_GRAPHS, vreg.PNP_GRAPHS)}
+
+
+def _graph_delta(before, tag, failures, chunks=None):
+    """Captures and replays since ``before`` (a :func:`_graph_counts`) on
+    a main path that ran after its warmup. Limits: no capture; replays >=
+    ``chunks`` where given, else at least one."""
+    after = _graph_counts()
+    delta = {k: {"captures": after[k][0] - before[k][0],
+                 "replays": after[k][1] - before[k][1]} for k in after}
+    captures = sum(d["captures"] for d in delta.values())
+    replays = sum(d["replays"] for d in delta.values())
+    if captures:
+        failures.append(f"{tag}: {captures} graph captures after warmup "
+                        f"({delta})")
+    if replays < (chunks if chunks is not None else 1):
+        failures.append(f"{tag}: {replays} graph replays for {chunks} "
+                        f"chunks")
+    return delta
+
+
 def _lidar_verify(failures, device="cuda"):
     """Part ``verify``: one ``_verify_pair_batch`` chunk of 8 pairs at
-    pad_size 1024 through ``compute_transform_batch_begin``/``_step``: the
-    4 revisits must pass within 0.1 m and 1 degree of ground truth, the 4
-    cross-scene pairs must be rejected, and the CUDA success flags must
-    equal the CPU's. Then the chunk's time (CUDA events, warm), its CUDA
-    kernels, device time and idle share (``torch.profiler``), and the host
-    syncs one chunk makes (``torch.cuda.set_sync_debug_mode``)."""
+    pad_size 1024 through ``compute_transform_batch_begin``/``_step`` (its
+    first call captures the tier's CUDA graph): the 4 revisits must pass
+    within 0.1 m and 1 degree of ground truth, the 4 cross-scene pairs
+    must be rejected, and the graphed success flags must equal the CPU's.
+    Then the same chunk graphed and eager on the card
+    (:func:`_graph_vs_eager`): equal inliers and flags, T's difference,
+    times, the production call's wall per chunk, the graph pool's bytes,
+    host syncs, and last each path's CUDA kernels, ``cudaGraphLaunch``
+    calls, device time and idle share (``torch.profiler``)."""
     import math
 
     import numpy as np
@@ -1691,22 +1790,27 @@ def _lidar_verify(failures, device="cuda"):
         failures.append(f"lidar verify: CPU flags {out['cpu_success']} "
                         f"differ from CUDA {ok}")
 
-    tensors = reg._pair_tensors(pairs, 1024, device)
-    corr = torch.tensor(np.float32(0.6), device=device)
+    operands = list(reg._pair_tensors(pairs, 1024, device)) + [
+        torch.tensor(np.float32(v), device=device) for v in (0.6, 40, 0.6)]
+    rec, graph, eager = _graph_vs_eager("lidar verify", reg.VERIFY_GRAPHS,
+                                        operands, failures)
+    out.update(rec)
+    graph_flags = graph()[2].cpu().tolist()
+    out["graph_success_equal_cpu"] = graph_flags == out["cpu_success"]
+    if not out["graph_success_equal_cpu"]:
+        failures.append(f"lidar verify: graphed flags {graph_flags} differ "
+                        f"from the CPU's {out['cpu_success']}")
 
-    def chunk():
-        return reg._verify_pair_batch(*tensors, corr, 40.0,
-                                      float(np.float32(0.6)))
-    out["ms_per_chunk"] = _time_ms(chunk, 5, 1)
-    # the same with nothing inside: what switching the mode reports itself
-    out["host_syncs_empty_region"] = _syncs_in(lambda: None)
-    out["host_sync_sites_per_chunk"] = _syncs_in(chunk)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    chunk()
-    torch.cuda.synchronize()
-    out["peak_device_mb"] = torch.cuda.max_memory_allocated() / 2 ** 20
-    out["profile"] = _device_profile(chunk, 3)
+    def production():
+        for h in reg.compute_transform_batch_begin(
+                pairs, 0.4, 40, pad_size=1024, device=device):
+            reg.compute_transform_batch_step(h)
+    production()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        production()
+    out["production_wall_ms_per_chunk"] = (time.perf_counter() - t0) * 200
+    _graph_profiles("lidar verify", out, graph, eager, failures)
     print("  verify " + json.dumps(out))
     return out
 
@@ -1779,8 +1883,15 @@ def _lidar_mission(failures, robots=3, steps=40, device="cuda",
             drifted[r].append(cur.copy())
     observed = {(r, i): _observe(world[gt[r][i][0]], gt[r][i][1], rng)
                 for r in range(robots) for i in range(steps)}
-    nodes[0][1].warmup(pair_tiers=(1, 8))
+    from cslam_tpu_torch.ops import registration as reg
+    tiers = (1, 2, 4, 8)
+    nodes[0][1].warmup(pair_tiers=tiers)
     torch.cuda.synchronize()
+    warmed = reg.VERIFY_GRAPHS.captures
+    if warmed != len(tiers):
+        failures.append(f"lidar mission: {warmed} verification graphs "
+                        f"after the warmup of tiers {tiers}")
+    graphs_before = _graph_counts()
     profiling.reset_spans()
     nns.launches = 0
     t0 = time.perf_counter()
@@ -1813,15 +1924,21 @@ def _lidar_mission(failures, robots=3, steps=40, device="cuda",
     spans = {k: v for k, v in profiling.spans().items()
              if k.split(".")[0] in ("lidar", "verify", "lcd", "nns")
              or k == "pgo.optimize"}
+    chunks = int(spans.get("verify.dispatch", {}).get("count", 0))
+    graphs = _graph_delta(graphs_before, "lidar mission", failures, chunks)
     out = {"robots": robots, "steps": steps, "scenes": scenes,
            "points": points, "drain_steps": drain,
            "cuts": {"robots": f"{robots} (bench 5)",
                     "steps": f"{steps} (bench 210)",
                     "tier floors": "config defaults (bench pins MAC mf/P/E "
                                    "and PGO np/ne at 2048)",
-                    "warmup": "verification only (the port compiles no "
-                              "tier)"},
+                    "warmup": "the verification graphs of tiers "
+                              f"{tiers} at pad 1024"},
            "wall_s": wall, "keyframes": keyframes,
+           "verify_chunks": chunks, "graphs_warmed": warmed,
+           "graphs": graphs,
+           "verify_batch_s": spans.get("lidar.verify_batch", {}).get(
+               "total_s"),
            "keyframes_per_s": keyframes / wall,
            "sim_s": float(steps + drain),
            "real_time_factor": (steps + drain) / wall,
@@ -2000,11 +2117,14 @@ def _visual_verify(failures, device="cuda"):
     ``benchmarks/verification_bench.py``'s widths through
     ``gnc_align_batch`` (12 GNC iterations, inlier distance 0.3 m), then
     the same poses as a projective chunk through ``gnc_pnp_batch`` (24
-    iterations, 4 px). Limits: every pair within 1 degree and 0.05 m of
-    the truth; inlier counts equal to the same call on the CPU; no host
-    sync inside a chunk. Then each chunk's time (CUDA events, warm), CUDA
-    kernels, device time and idle share (``torch.profiler``) and peak
-    memory."""
+    iterations, 4 px); each call on the card replays the tier's CUDA
+    graph, captured at the first. Limits: every pair within 1 degree and
+    0.05 m of the truth; inlier counts equal to the same call on the CPU;
+    the graphed chunk's inliers equal to the eager chunk's on the card (T's
+    difference printed); no host sync inside a graphed chunk. Then each
+    path's time per chunk (CUDA events, warm), peak memory and the graph
+    pool's bytes, and last each path's CUDA kernels, ``cudaGraphLaunch``
+    calls, device time and idle share (``torch.profiler``)."""
     import numpy as np
     import torch
 
@@ -2012,12 +2132,13 @@ def _visual_verify(failures, device="cuda"):
     rigid, pnp, truth = _verification_chunks(np.random.default_rng(0))
     cam = [_VIS_CAM[k] for k in ("fx", "fy", "cx", "cy")]
     chunks = {
-        "gnc_align_batch": lambda dev, arrays=None: vreg.gnc_align_batch(
-            *(arrays or rigid), 0.3, iters=12, device=dev),
-        "gnc_pnp_batch": lambda dev, arrays=None: vreg.gnc_pnp_batch(
-            *(arrays or pnp), *cam, inlier_px=4.0, iters=24, device=dev)}
+        "gnc_align_batch": lambda dev: vreg.gnc_align_batch(
+            *rigid, 0.3, iters=12, device=dev),
+        "gnc_pnp_batch": lambda dev: vreg.gnc_pnp_batch(
+            *pnp, *cam, inlier_px=4.0, iters=24, device=dev)}
     out = {"pairs": len(truth), "live_correspondences": 200,
            "slots": vreg.MAX_CORRESPONDENCES, "outliers": 0.2}
+    calls = {}
     for name, run in chunks.items():
         rec = out[name] = {}
         T, inl = run(device)
@@ -2035,32 +2156,22 @@ def _visual_verify(failures, device="cuda"):
         if not rec["inliers_equal_cpu"]:
             failures.append(f"visual_verify {name}: inliers {rec['inliers']}"
                             f" differ from the CPU's {inl_cpu.tolist()}")
-        tensors = [torch.as_tensor(a, device=device)
-                   for a in (rigid if name == "gnc_align_batch" else pnp)]
-
-        def chunk(run=run, tensors=tensors):
-            return run(device, tensors)
-        rec["ms_per_chunk"] = _time_ms(chunk, 10, 2)
-        # what switching the mode reports itself is not the chunk's
-        empty = _syncs_in(lambda: None)
-        rec["host_syncs_empty_region"] = empty
-        rec["host_sync_sites_per_chunk"] = _syncs_in(chunk)
-        inside = [w for w in rec["host_sync_sites_per_chunk"]
-                  if w not in empty]
-        if inside:
-            failures.append(f"visual_verify {name}: host syncs inside the "
-                            f"chunk {inside}")
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        chunk()
-        torch.cuda.synchronize()
-        rec["peak_device_mb"] = torch.cuda.max_memory_allocated() / 2 ** 20
+        arrays, extra, iters = ((rigid, [0.3], 12)
+                                if name == "gnc_align_batch"
+                                else (pnp, cam + [4.0], 24))
+        operands = [torch.as_tensor(a, device=device) for a in arrays] + [
+            torch.tensor(np.float32(v), device=device) for v in extra]
+        graphs = (vreg.ALIGN_GRAPHS if name == "gnc_align_batch"
+                  else vreg.PNP_GRAPHS)
+        got, graph, eager = _graph_vs_eager(
+            f"visual_verify {name}", graphs, operands, failures, 10,
+            iters=iters)
+        rec.update(got)
+        calls[name] = (graph, eager)
     # the profiler last: its tracing may slow what runs after it
-    for name, run in chunks.items():
-        tensors = [torch.as_tensor(a, device=device)
-                   for a in (rigid if name == "gnc_align_batch" else pnp)]
-        out[name]["profile"] = _device_profile(
-            lambda run=run, tensors=tensors: run(device, tensors), 3)
+    for name, (graph, eager) in calls.items():
+        _graph_profiles(f"visual_verify {name}", out[name], graph, eager,
+                        failures)
     print("  visual_verify " + json.dumps(out))
     return out
 
@@ -2158,6 +2269,7 @@ def _visual_mission(failures, robots=3, steps=40, device="cuda", scenes=40,
     native_available = native.available()      # builds the library once
     if device != "cpu":
         torch.cuda.synchronize()
+    graphs_before = _graph_counts()
     profiling.reset_spans()
     nns.launches = 0
     t0 = time.perf_counter()
@@ -2192,6 +2304,9 @@ def _visual_mission(failures, robots=3, steps=40, device="cuda", scenes=40,
     spans = {k: v for k, v in profiling.spans().items()
              if k.split(".")[0] in ("rgbd", "lcd", "nns")
              or k == "pgo.optimize"}
+    tag = f"visual mission ({sensor})"
+    graphs = (_graph_delta(graphs_before, tag, failures)
+              if device != "cpu" else None)
     out = {"sensor": sensor, "front_end": type(nodes[0][1]).__name__,
            "robots": robots, "steps": steps, "scenes": scenes,
            "frame": f"{_VIS_W}x{_VIS_H}", "drain_steps": drain,
@@ -2208,11 +2323,15 @@ def _visual_mission(failures, robots=3, steps=40, device="cuda", scenes=40,
            "optimizations": be0.optimization_count,
            "ate_odometry_m": rmse({i: drifted[0][i] for i in range(steps)}),
            "ate_optimized_m": rmse(est) if est else float("nan"),
-           "k1_launches": launches, "spans": spans}
+           "k1_launches": launches, "graphs": graphs,
+           "verify_batch_s": spans.get("rgbd.verify_batch", {}).get(
+               "total_s"),
+           "verify_batch_calls": spans.get("rgbd.verify_batch", {}).get(
+               "count"),
+           "spans": spans}
     print(profiling.report())
     print(f"  visual_mission {sensor} " + json.dumps(
         {k: v for k, v in out.items() if k != "spans"}))
-    tag = f"visual mission ({sensor})"
     if not out["native_available"]:
         failures.append(f"{tag}: the C++ feature library is not loaded")
     if loops < 1:
@@ -2510,9 +2629,12 @@ def _print_replay(tag, rec):
           f"error {rec['loop_error_median_m']} m)")
     for r in rec["robots"]:
         print("  " + json.dumps(r))
+    if rec.get("graphs"):
+        print("  graphs " + json.dumps(rec["graphs"]))
 
 
 _STEREO_OVERRIDES = {
+    "frontend.warmup_verification_tiers": (1, 2, 4, 8, 16),
     "frontend.similarity_threshold": 0.95,
     "frontend.pnp_min_inliers": 10,
     "frontend.inter_robot_detection_period_sec": 1.0,
@@ -2563,6 +2685,7 @@ def _deploy_stereo(failures, root, device="cuda", frames=20, dt=0.25,
     first = driver(device)
     if device != "cpu":
         torch.cuda.synchronize()
+    graphs_before = _graph_counts()
     profiling.reset_spans()
     nns.launches = 0
     t0 = time.perf_counter()
@@ -2591,6 +2714,8 @@ def _deploy_stereo(failures, root, device="cuda", frames=20, dt=0.25,
     if device != "cpu":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    graphs = (_graph_delta(graphs_before, "stereo replay", failures)
+              if device != "cpu" else None)
     launches = nns.launches
     spans = {k: v for k, v in profiling.spans().items()
              if k.split(".")[0] in ("rgbd", "lcd", "nns")
@@ -2619,7 +2744,7 @@ def _deploy_stereo(failures, root, device="cuda", frames=20, dt=0.25,
         "write_s": written, "snapshot_bytes": [os.path.getsize(p)
                                                for p in paths],
         "before_restore": before, "after_restore": after,
-        "cpu_restore_same": cpu_same})
+        "cpu_restore_same": cpu_same, "graphs": graphs})
     _print_replay("stereo_replay", rec)
     print("  snapshot " + json.dumps({k: rec[k] for k in (
         "snapshot_bytes", "before_restore", "after_restore",
@@ -2687,9 +2812,10 @@ def _deploy_lidar(failures, root, device="cuda", frames=20,
     # the JAX package's replay builds no logger; a deployment attaches one
     robot0.backend.logger = ExperimentLogger(robot0.ctx, log_root,
                                              device=device)
-    robot0.frontend.warmup(pair_tiers=(1, 8))
+    robot0.frontend.warmup(pair_tiers=(1, 2, 4, 8))
     if device != "cpu":
         torch.cuda.synchronize()
+    graphs_before = _graph_counts()
     profiling.reset_spans()
     nns.launches = 0
     t0 = time.perf_counter()
@@ -2697,6 +2823,9 @@ def _deploy_lidar(failures, root, device="cuda", frames=20,
     if device != "cpu":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    chunks = int(profiling.spans().get("verify.dispatch", {}).get("count", 0))
+    graphs = (_graph_delta(graphs_before, "lidar replay", failures, chunks)
+              if device != "cpu" else None)
     launches = nns.launches
     spans = {k: v for k, v in profiling.spans().items()
              if k.split(".")[0] in ("lidar", "verify", "lcd", "nns")
@@ -2713,7 +2842,8 @@ def _deploy_lidar(failures, root, device="cuda", frames=20,
     rec.update({"points_per_sweep": points, "frames_per_robot": frames,
                 "write_s": written, "fused_stage1": fused,
                 "log_files": len(files), "metrics_rows": len(rows),
-                "graph_error": graph_error})
+                "graph_error": graph_error, "verify_chunks": chunks,
+                "graphs": graphs})
     _print_replay("lidar_replay", rec)
     print("  logger " + json.dumps({"files": files[:4] + ["..."],
                                     "rows": len(rows),

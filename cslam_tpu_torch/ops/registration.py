@@ -39,8 +39,13 @@ What differs from the JAX package, and why:
   would put off by about 1e-3 |p|^2, tenths of m^2 at 10 m.
 - Ties follow the JAX rules: ``lax.top_k`` (hypothesis refinement, kNN) by
   a stable descending sort, ``jnp.argmax``/``argmin`` by the first extreme.
-- The pair chunks are not padded to power-of-two tiers (that bounded the
-  number of compiled programs; eager PyTorch compiles nothing per shape).
+- A pair chunk is padded to its power-of-two tier by repeating its last
+  pair, as in the JAX package, and :func:`_verify_pair_batch` runs through
+  ``utils.tier_graphs``: one CUDA graph per tier on the card, captured at
+  the front end's warmup (or at a tier's first use) where the JAX package
+  compiles one program per tier; eagerly on the CPU. Its thresholds are
+  float32 tensor operands, as the JAX package's ``np.float32`` arguments,
+  so one graph serves every voxel size and gate.
 """
 from __future__ import annotations
 
@@ -53,6 +58,7 @@ import torch
 from cslam_tpu_torch import resolve_device
 from cslam_tpu_torch.ops import highest_precision
 from cslam_tpu_torch.ops.topk import topk_ties_ascending
+from cslam_tpu_torch.utils.tier_graphs import TierGraphs, host_operands
 
 _FPFH_BINS = 11
 _GRID = 64
@@ -300,8 +306,13 @@ def _gather_hyp(x, idx):
 
 def _corr(corr_dist, like: torch.Tensor) -> torch.Tensor:
     """``corr_dist`` (a float or a scalar tensor) as a float32 scalar on
-    ``like``'s device, as the JAX package's ``jnp.float32(corr_dist)``."""
-    return torch.as_tensor(corr_dist, dtype=torch.float32, device=like.device)
+    ``like``'s device, as the JAX package's ``jnp.float32(corr_dist)``. A
+    float becomes a fill on the device, never a host copy (which a CUDA
+    graph capture refuses); the graphed chunks pass a tensor."""
+    if isinstance(corr_dist, torch.Tensor):
+        return corr_dist.to(like.device, torch.float32)
+    return torch.full((), float(np.float32(corr_dist)), dtype=torch.float32,
+                      device=like.device)
 
 
 @highest_precision
@@ -578,8 +589,9 @@ def _verify_pair_batch(src, sm, dst, dm, corr_dist, min_inliers,
     prior-free global registration, inlier gating and arbitration, all on
     the device with no host read. The ICP result wins if it passes the
     gate; otherwise the higher-inlier candidate is taken and re-gated.
-    Returns (T ``[P, 4, 4]``, inliers ``[P]``, success ``[P]``, ICP-gate
-    pass ``[P]``)."""
+    ``corr_dist``, ``min_inliers`` and ``min_inlier_ratio`` are float32
+    scalar tensors (or floats, eagerly). Returns (T ``[P, 4, 4]``, inliers
+    ``[P]``, success ``[P]``, ICP-gate pass ``[P]``)."""
     T0, inl0 = robust_registration_batch(src, sm, dst, dm, corr_dist)
     Tg, inlg = global_registration_batch(src, sm, dst, dm, corr_dist)
     n_src = torch.clamp(sm.sum(1), min=1.0)
@@ -593,6 +605,11 @@ def _verify_pair_batch(src, sm, dst, dm, corr_dist, min_inliers,
     inl = torch.where(use_g, inlg, inl0)
     success = torch.where(use_g, gate(inlg), ok0)
     return T, inl, success, ok0
+
+
+# one graph per (pair tier, pad size) on the card; eager on the CPU
+VERIFY_GRAPHS = TierGraphs(_verify_pair_batch,
+                           "registration._verify_pair_batch")
 
 
 class VerifyBatchHandle:
@@ -616,16 +633,27 @@ class VerifyBatchHandle:
         return self.results is not None
 
 
-def _pair_tensors(pairs, pad_size: int, device):
+def _pair_arrays(pairs, pad_size: int):
     """Padded ``[P, pad_size, 3]`` clouds and ``[P, pad_size]`` masks of
-    (src, dst) pairs, on ``device``."""
+    (src, dst) pairs, as numpy arrays (src, src mask, dst, dst mask)."""
     src = [pad_cloud(s, pad_size) for s, _ in pairs]
     dst = [pad_cloud(d, pad_size) for _, d in pairs]
+    return (np.stack([p for p, _ in src]), np.stack([m for _, m in src]),
+            np.stack([p for p, _ in dst]), np.stack([m for _, m in dst]))
 
-    def put(a):
-        return torch.from_numpy(np.stack(a)).to(device)
-    return (put([p for p, _ in src]), put([m for _, m in src]),
-            put([p for p, _ in dst]), put([m for _, m in dst]))
+
+def _pair_tensors(pairs, pad_size: int, device):
+    """:func:`_pair_arrays` as tensors on ``device``."""
+    return tuple(torch.from_numpy(a).to(device)
+                 for a in _pair_arrays(pairs, pad_size))
+
+
+def _pair_tier(p: int) -> int:
+    """The power-of-two pair tier of a chunk of ``p`` pairs."""
+    tier = 1
+    while tier < p:
+        tier *= 2
+    return tier
 
 
 def compute_transform_batch_begin(pairs, voxel_size: float, min_inliers: int,
@@ -635,21 +663,26 @@ def compute_transform_batch_begin(pairs, voxel_size: float, min_inliers: int,
                                   device=None) -> list:
     """Launch batched verification without waiting for it. Returns one
     :class:`VerifyBatchHandle` per chunk of up to ``max_pair_tier`` pairs
-    (the chunk bounds the device memory of one verification)."""
+    (the chunk bounds the device memory of one verification). A chunk is
+    padded to its power-of-two pair tier by repeating its last pair (as in
+    the JAX package; ``h.p`` stays the live count, and padded slots reach
+    neither ``results`` nor the counters), uploaded from pinned host memory
+    and run through :data:`VERIFY_GRAPHS`."""
     from cslam_tpu_torch.utils import device_read, profiling
     device = resolve_device(device)
-    corr = torch.tensor(np.float32(float(voxel_size) * 1.5), device=device)
+    gates = (float(voxel_size) * 1.5, min_inliers, min_inlier_ratio)
     handles = []
     for c in range(0, len(pairs), max_pair_tier):
         chunk = pairs[c:c + max_pair_tier]
         h = VerifyBatchHandle()
         h.p = len(chunk)
         h.results = None
-        src, src_m, dst, dst_m = _pair_tensors(chunk, pad_size, device)
+        padded = list(chunk) + [chunk[-1]] * (_pair_tier(h.p) - h.p)
+        operands = host_operands(device, *_pair_arrays(padded, pad_size),
+                                 *(np.float32(g) for g in gates))
         with profiling.span("verify.dispatch"):
-            h.T_dev, h.inl_dev, h.ok_dev, h.ok_icp_dev = _verify_pair_batch(
-                src, src_m, dst, dst_m, corr, float(np.float32(min_inliers)),
-                float(np.float32(min_inlier_ratio)))
+            h.T_dev, h.inl_dev, h.ok_dev, h.ok_icp_dev = VERIFY_GRAPHS(
+                device, *operands)
             device_read.prefetch(
                 (h.T_dev, h.inl_dev, h.ok_dev, h.ok_icp_dev))
         handles.append(h)

@@ -24,9 +24,13 @@ What differs from the JAX package, and why:
   (``ops.registration._rotation_from_cross_covariance``); the JAX package
   takes a float32 SVD, so an inlier count can differ by one where a
   residual sits on the threshold.
-- The pair chunks keep the JAX package's power-of-two pair tiers: eager
-  PyTorch compiles nothing per shape, but fixed shapes keep each pair's
-  result that of the JAX package and the chunk capturable as a CUDA graph.
+- The pair chunks keep the JAX package's power-of-two pair tiers, and
+  ``gnc_align_batch`` / ``gnc_pnp_batch`` run through
+  ``utils.tier_graphs``: one CUDA graph per tier on the card, captured by
+  the warmups (or at a tier's first use) where the JAX package compiles
+  one program per tier; eagerly on the CPU. As in the JAX package, where
+  only ``iters`` is static, the inlier thresholds and the camera
+  intrinsics are float32 tensor operands, so one graph serves them all.
 - Every entry point takes ``device`` (CUDA unless the caller passes
   another) and runs with TF32 off (``ops.highest_precision``).
 """
@@ -40,8 +44,10 @@ import torch
 from cslam_tpu_torch import resolve_device
 from cslam_tpu_torch.native import hamming_match
 from cslam_tpu_torch.ops import highest_precision
-from cslam_tpu_torch.ops.registration import _matvec, _to_T, _weighted_kabsch
+from cslam_tpu_torch.ops.registration import (_matvec, _pair_tier, _to_T,
+                                              _weighted_kabsch)
 from cslam_tpu_torch.utils import device_read
+from cslam_tpu_torch.utils.tier_graphs import TierGraphs, host_operands
 
 MAX_CORRESPONDENCES = 512
 
@@ -108,33 +114,32 @@ def gnc_align(src, dst, valid, inlier_dist: float, iters: int = 12,
     return _gnc_align_core(src, dst, valid, _f32(inlier_dist), iters)
 
 
-@highest_precision
+ALIGN_GRAPHS = TierGraphs(highest_precision(_gnc_align_core),
+                          "visual_registration.gnc_align_batch")
+
+
 def gnc_align_batch(src, dst, valid, inlier_dist: float, iters: int = 12,
                     device=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Batched GNC-TLS alignment over ``P`` candidate pairs at once.
 
-    ``src/dst [P, N, 3]``, ``valid [P, N]``. Returns (T ``[P, 4, 4]``,
-    inliers ``[P]``) on ``device``. One keyframe message can request
-    verification against many local keyframes (the reference loops over
-    them one RANSAC-PnP call at a time, rgbd_handler.cpp:493-554); here
-    they are one chunk of tensor ops."""
-    src, dst, valid = _tensors(resolve_device(device), src, dst, valid)
-    return _gnc_align_core(src, dst, valid, _f32(inlier_dist), iters)
-
-
-def _pair_tier(p: int) -> int:
-    """Pad a batch size to its power-of-two pair tier."""
-    tier = 1
-    while tier < p:
-        tier *= 2
-    return tier
+    ``src/dst [P, N, 3]``, ``valid [P, N]`` (arrays or tensors),
+    ``inlier_dist`` a float or a float32 scalar tensor. Returns (T ``[P, 4,
+    4]``, inliers ``[P]``) on ``device``, one graph replay per call on the
+    card (:data:`ALIGN_GRAPHS`, keyed by ``P`` and ``iters``). One keyframe
+    message can request verification against many local keyframes (the
+    reference loops over them one RANSAC-PnP call at a time,
+    rgbd_handler.cpp:493-554); here they are one chunk."""
+    device = resolve_device(device)
+    return ALIGN_GRAPHS(device, *host_operands(device, src, dst, valid,
+                                               inlier_dist), iters=iters)
 
 
 def warmup_verification(tiers=(1, 2, 4, 8, 16), inlier_dist: float = 0.3,
                         device=None) -> None:
-    """Run ``gnc_align_batch`` once per pair tier. Eager PyTorch compiles
-    nothing per shape: this warms the CUDA context and the allocator (the
-    JAX package precompiles the tiers here)."""
+    """Capture ``gnc_align_batch``'s graph of each pair tier (default
+    ``iters``) before the first frame, as the JAX package precompiles the
+    tiers here. Any ``inlier_dist`` serves: it is an operand of the graph.
+    On the CPU the same calls run eagerly."""
     device = resolve_device(device)
     for tier in tiers:
         z3 = torch.zeros((tier, MAX_CORRESPONDENCES, 3), device=device)
@@ -268,9 +273,8 @@ def _skew(v: torch.Tensor) -> torch.Tensor:
 
 
 def _gnc_pnp_core(p3d: torch.Tensor, uv: torch.Tensor, valid: torch.Tensor,
-                  init_dst3d: torch.Tensor, fx: float, fy: float, cx: float,
-                  cy: float, inlier_px: float, iters: int
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+                  init_dst3d: torch.Tensor, fx, fy, cx, cy, inlier_px,
+                  iters: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """GNC-TLS perspective-n-point of ``P`` pairs: find ``T`` with
     ``project(T p3d[i]) ~ uv[i]``.
 
@@ -279,12 +283,13 @@ def _gnc_pnp_core(p3d: torch.Tensor, uv: torch.Tensor, valid: torch.Tensor,
     valid: ``[P, N]`` correspondence mask.
     init_dst3d: ``[P, N, 3]`` local back-projections (possibly coarse or
         noisy depth; zero rows where depth is missing), initialization only.
+    fx, fy, cx, cy, inlier_px: float32 scalar tensors.
 
     Returns (T ``[P, 4, 4]`` = X_local^-1 X_remote, reprojection-inlier
     count ``[P]``). One Gauss-Newton step on the robustly weighted pixel
     residual per GNC graduation round; each pair accepts or rejects its
     own step."""
-    eps_sq = _f32(inlier_px * inlier_px)
+    eps_sq = inlier_px * inlier_px
     dev = p3d.device
     I3 = torch.eye(3, dtype=torch.float32, device=dev)
 
@@ -349,27 +354,33 @@ def _gnc_pnp_core(p3d: torch.Tensor, uv: torch.Tensor, valid: torch.Tensor,
     return _to_T(R, t), inliers
 
 
-@highest_precision
+PNP_GRAPHS = TierGraphs(highest_precision(_gnc_pnp_core),
+                        "visual_registration.gnc_pnp_batch")
+
+
 def gnc_pnp_batch(p3d, uv, valid, init_dst3d, fx, fy, cx, cy,
                   inlier_px: float = 4.0, iters: int = 24, device=None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Batched GNC-TLS PnP over ``P`` candidate pairs at once.
 
     ``p3d/init_dst3d [P, N, 3]``, ``uv [P, N, 2]``, ``valid [P, N]``
-    (arrays or tensors). Returns (T ``[P, 4, 4]`` = X_local^-1 X_remote,
-    reprojection inliers ``[P]``) on ``device``."""
-    p3d, uv, valid, init_dst3d = _tensors(resolve_device(device), p3d, uv,
-                                          valid, init_dst3d)
-    return _gnc_pnp_core(p3d, uv, valid, init_dst3d, _f32(fx), _f32(fy),
-                         _f32(cx), _f32(cy), inlier_px, iters)
+    (arrays or tensors); the intrinsics and ``inlier_px`` floats or float32
+    scalar tensors. Returns (T ``[P, 4, 4]`` = X_local^-1 X_remote,
+    reprojection inliers ``[P]``) on ``device``, one graph replay per call
+    on the card (:data:`PNP_GRAPHS`, keyed by ``P`` and ``iters``; a tier
+    no warmup captured is captured at its first use)."""
+    device = resolve_device(device)
+    return PNP_GRAPHS(device, *host_operands(
+        device, p3d, uv, valid, init_dst3d, fx, fy, cx, cy, inlier_px),
+        iters=iters)
 
 
 def warmup_verification_projective(tiers=(1, 2, 4, 8, 16),
                                    fx: float = 300.0, fy: float = 300.0,
                                    cx: float = 160.0, cy: float = 120.0,
                                    device=None) -> None:
-    """Run ``gnc_pnp_batch`` once per pair tier (see
-    :func:`warmup_verification`)."""
+    """Capture ``gnc_pnp_batch``'s graph of each pair tier (see
+    :func:`warmup_verification`; any camera serves)."""
     device = resolve_device(device)
     for tier in tiers:
         z3 = torch.zeros((tier, MAX_CORRESPONDENCES, 3), device=device)

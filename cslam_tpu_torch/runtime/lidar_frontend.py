@@ -87,12 +87,15 @@ class LidarFrontEnd:
 
     def warmup(self, pair_tiers=(1, 2, 4, 8), pad_size: int = 1024,
                include_global: bool = True) -> None:
-        """Run the fused geometric verification
+        """Capture the fused geometric verification
         (``registration._verify_pair_batch``: multi-start ICP + prior-free
-        global registration + on-device gating) once per pair-chunk size,
-        through the production call ``compute_transform_batch_begin``.
-        Eager PyTorch compiles nothing per shape: this warms the CUDA
-        context, the cuFFT plans and the allocator. ``include_global`` is
+        global registration + on-device gating) as one CUDA graph per pair
+        tier at ``pad_size``, as the JAX package compiles one program per
+        tier here, so that no live chunk pays a capture. It goes through
+        the production call ``compute_transform_batch_begin``, so the keys
+        are production's (``tests/test_torch_no_recapture.py``); its
+        thresholds are operands of the graph, so any voxel size and gate
+        serve. On the CPU the same calls run eagerly. ``include_global`` is
         kept for the JAX package's signature (the fused verification always
         runs both solvers)."""
         del include_global

@@ -209,8 +209,8 @@ class RGBDFrontEnd:
         self.steered_brief = bool(self.params.get(
             "frontend.steered_brief", True))
 
-        # run the verification once per pair tier before the first frame
-        # (a device warm-up here: eager PyTorch compiles nothing per tier)
+        # capture the verification's graph of each pair tier before the
+        # first frame, as the JAX package precompiles the tiers here
         warmup_tiers = self.params.get("frontend.warmup_verification_tiers",
                                        ())
         if warmup_tiers:

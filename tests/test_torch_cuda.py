@@ -3,8 +3,9 @@ scan, also on the scan-context bank's augmented ring keys, and K2, the tile
 scan) against their plain PyTorch versions, and the large-graph solver
 tiers (MAC's Woodbury/LOBPCG tier, PGO's PCG tier), one lidar
 verification chunk and one visual 3D-3D and one projective verification
-chunk on the card against the same on the CPU. They skip on a
-machine without a GPU.
+chunk on the card (replayed CUDA graphs) against the same on the CPU, and
+the graph cache itself (``utils.tier_graphs``). They skip on a machine
+without a GPU.
 
 This file imports neither JAX nor the JAX package, so it also runs where
 only PyTorch is installed; there the JAX-importing ``tests/conftest.py``
@@ -264,3 +265,30 @@ def test_visual_verification_chunk_on_card_matches_cpu(solver):
     assert torch.equal(out["cuda"][1], out["cpu"][1])
     torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=0,
                                atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_tier_graphs_capture_once_and_keep_earlier_outputs():
+    """``utils.tier_graphs.TierGraphs`` on the card: one capture per key
+    (shapes, dtypes, static keywords), replays with new operands equal to
+    the eager function, and an earlier replay's outputs untouched by a
+    later one (a caller launches several chunks of one tier before it
+    reads any)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (a CUDA graph has no CPU mode)")
+    from cslam_tpu_torch.utils.tier_graphs import TierGraphs
+
+    def fn(x, scale, k):
+        return (x * scale).cumsum(-1)[..., :k], (x > 0).sum(-1)
+    graphs = TierGraphs(fn, "test")
+    a = torch.arange(12.0, device="cuda").view(3, 4) - 5.0
+    scale = torch.tensor(2.0, device="cuda")
+    first = graphs("cuda", a, scale, k=3)
+    second = graphs("cuda", -a, scale * 3, k=3)
+    assert (graphs.captures, graphs.replays) == (1, 2)
+    for got, want in zip(first + second, fn(a, scale, 3) + fn(-a, scale * 3,
+                                                               3)):
+        assert torch.equal(got, want)
+    graphs("cuda", a, scale, k=2)
+    graphs("cuda", a[:2], scale, k=3)
+    assert graphs.captures == 3 and graphs.keys_seen == 3

@@ -17,6 +17,7 @@ from cslam_tpu_torch import entry as port_entry
 from cslam_tpu_torch.convert import cosplace_state_dict_from_jax
 from cslam_tpu_torch.models.convert import load_cosplace
 from cslam_tpu_torch.ops import nns
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def test_frontend_step_matches_the_jax_entry():

@@ -24,6 +24,7 @@ from jax.experimental.sparse.linalg import lobpcg_standard as jlobpcg
 from cslam_tpu.ops import fiedler as jfd
 from cslam_tpu_torch.ops import fiedler as tfd
 from cslam_tpu_torch.ops.lobpcg import lobpcg_standard as tlobpcg
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _reference_start_block(monkeypatch):

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 
 from test_lidar_e2e import scene_cloud
+from torch_threads import one_torch_thread  # noqa: F401
 
 ATE_TOL = 1e-3
 

@@ -9,6 +9,7 @@ from cslam_tpu.utils import compression as j_comp
 from cslam_tpu.utils import point_cloud2 as j_pc2
 from cslam_tpu_torch.utils import compression as t_comp
 from cslam_tpu_torch.utils import point_cloud2 as t_pc2
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("quantize_f16", [False, True])

@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 
 from cslam_tpu_torch.evaluation import g2o as g2o_io
+from torch_threads import one_torch_thread  # noqa: F401
 
 REL_TOL = 1e-4
 #: below this, a graph error is float32 round-off of an exact fit

@@ -23,6 +23,7 @@ from cslam_tpu_torch import types as ttypes
 from cslam_tpu_torch.ops import fiedler as tfd
 from cslam_tpu_torch.selection import acm as tacm
 from cslam_tpu_torch.selection import mac as tmac
+from torch_threads import one_torch_thread  # noqa: F401
 
 _FLOORS = {"frontend.mac_p_floor": 1024, "frontend.mac_e_floor": 256,
            "frontend.mac_mf_floor": 64}

@@ -29,6 +29,7 @@ from cslam_tpu_torch.models import golden, make_global_descriptor, preprocess
 from cslam_tpu_torch.models.convert import load_cosplace
 from cslam_tpu_torch.models.cosplace import CosPlace, GeoLocalizationNet
 from cslam_tpu_torch.models.netvlad import NetVLAD
+from torch_threads import one_torch_thread  # noqa: F401
 
 GOLDENS = os.path.join(os.path.dirname(__file__), "data", "vpr_goldens.npz")
 COS_JAX = 0.99999

@@ -17,6 +17,7 @@ import torch
 
 from cslam_tpu.ops import topk as jtopk
 from cslam_tpu_torch.ops import nns
+from torch_threads import one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 1e-5, 1e-6
 

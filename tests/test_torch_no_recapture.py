@@ -1,0 +1,107 @@
+"""The port's mirror of ``tests/test_no_retrace.py``'s verification case:
+a warmup must cover every verification chunk that production runs, so
+that on the card no live chunk pays a CUDA graph capture.
+
+On the CPU the graphed functions (``registration.VERIFY_GRAPHS``,
+``visual_registration.ALIGN_GRAPHS``) run eagerly and ``TierGraphs`` still
+records the keys (input shapes and dtypes, device, static keywords) it
+would capture on the card; the check is that production sees no key the
+warmup did not. A second call with other thresholds sees no new key either
+(they are operands of the graph, as they are traced arguments in the JAX
+package) and still decides as the JAX package does for those values: the
+success flags equal, the visual inlier counts within one (the port's
+Kabsch rotation is a float64 closed form, the JAX package's a float32 SVD,
+so a residual on the inlier distance can count differently).
+"""
+import numpy as np
+import pytest
+
+from cslam_tpu.native import brief_describe as j_brief
+from cslam_tpu.native import fast_detect as j_fast
+from cslam_tpu.ops import registration as J
+from cslam_tpu.ops import visual_registration as JV
+from cslam_tpu_torch.ops import registration as T
+from cslam_tpu_torch.ops import visual_registration as TV
+from cslam_tpu_torch.runtime import (LidarFrontEnd, MessageBus, RobotContext,
+                                     VirtualClock)
+from test_visual_frontend import CAM, make_world, pose_xyz_yaw, render
+from torch_threads import one_torch_thread  # noqa: F401
+
+PAD = 96
+
+
+@pytest.fixture(scope="module")
+def lidar_pairs():
+    """``test_no_retrace``'s case: ``LidarFrontEnd.warmup(pair_tiers=(1,
+    2), pad_size=96)``, then 3 near-identical cloud pairs (with the cap at
+    2: chunks of 2 and 1, both warmed tiers). Returns (pairs, the keys
+    seen after the warmup)."""
+    fe = LidarFrontEnd(RobotContext(
+        MessageBus(), VirtualClock(), 0,
+        {"robot_id": 0, "max_nb_robots": 2, "frontend.voxel_size": 0.5}),
+        device="cpu")
+    fe.warmup(pair_tiers=(1, 2), pad_size=PAD)
+    rng = np.random.default_rng(1)
+    cloud = rng.normal(size=(80, 3)).astype(np.float32) * 4
+    pairs = [(cloud, cloud + rng.normal(scale=0.01, size=cloud.shape)
+              .astype(np.float32)) for _ in range(3)]
+    return pairs, set(T.VERIFY_GRAPHS.keys)
+
+
+def test_registration_batch_no_new_key_after_warmup(lidar_pairs):
+    pairs, warmed = lidar_pairs
+    res = T.compute_transform_batch(pairs, 0.5, 10, pad_size=PAD,
+                                    max_pair_tier=2, device="cpu")
+    assert len(res) == 3 and all(ok for _, ok in res)
+    assert set(T.VERIFY_GRAPHS.keys) == warmed
+
+
+@pytest.mark.parametrize("voxel,min_inliers", [(0.5, 10), (0.3, 200)])
+def test_registration_thresholds_are_operands(lidar_pairs, voxel,
+                                              min_inliers):
+    """Another voxel size and gate after the warmup: no new key, and the
+    JAX package's decisions (all pass at 10, all fail at 200 > the 80
+    points)."""
+    pairs, warmed = lidar_pairs
+    got = T.compute_transform_batch(pairs, voxel, min_inliers, pad_size=PAD,
+                                    max_pair_tier=2, device="cpu")
+    want = J.compute_transform_batch(pairs, voxel, min_inliers,
+                                     pad_size=PAD, max_pair_tier=2)
+    assert [ok for _, ok in got] == [ok for _, ok in want] == [
+        min_inliers < 80] * 3
+    assert set(T.VERIFY_GRAPHS.keys) == warmed
+
+
+def _features(img, dep):
+    kp, _ = j_fast(img, 25, 300)
+    return (JV.project_to_3d(kp, dep, CAM.fx, CAM.fy, CAM.cx, CAM.cy),
+            j_brief(img, kp))
+
+
+@pytest.fixture(scope="module")
+def camera_pairs():
+    """``warmup_verification((1, 2, 4))``, then three live keyframe pairs
+    of one rendered scene (a tier of 4 with one zero slot). Returns (pairs,
+    the keys seen after the warmup)."""
+    TV.warmup_verification((1, 2, 4), device="cpu")
+    pts, tex = make_world(np.random.default_rng(6))
+    views = [_features(*render(pts, tex, pose)) for pose in (
+        np.eye(4), pose_xyz_yaw(0.3, 0.1, 0, yaw=0.05),
+        pose_xyz_yaw(-0.2, 0.3, 0, yaw=-0.1))]
+    pairs = [(*views[0], *views[1]), (*views[1], *views[2]),
+             (*views[0], *views[2])]
+    return pairs, set(TV.ALIGN_GRAPHS.keys)
+
+
+@pytest.mark.parametrize("inlier_dist,min_inliers", [(0.3, 6), (0.02, 40)])
+def test_visual_warmup_covers_live_pairs(camera_pairs, inlier_dist,
+                                         min_inliers):
+    pairs, warmed = camera_pairs
+    got = TV.verify_keyframe_pairs(pairs, min_inliers=min_inliers,
+                                   inlier_dist=inlier_dist, device="cpu")
+    assert set(TV.ALIGN_GRAPHS.keys) == warmed
+    want = JV.verify_keyframe_pairs(pairs, min_inliers=min_inliers,
+                                    inlier_dist=inlier_dist)
+    assert [g[1] for g in got] == [w[1] for w in want]
+    for g, w in zip(got, want):
+        assert abs(g[2] - w[2]) <= 1

@@ -24,6 +24,7 @@ from cslam_tpu_torch.convert import pose_graph_arrays_from_numpy
 from cslam_tpu_torch.ops import se3 as tse3
 from cslam_tpu_torch.pgo import solver as tsolver
 from cslam_tpu_torch.pgo.chordal import chordal_initialize as tchordal
+from torch_threads import one_torch_thread  # noqa: F401
 
 SIGMAS = np.array([0.01] * 3 + [0.1] * 3)
 POSE_ATOL = 2e-3

@@ -30,6 +30,7 @@ from test_torch_pgo import _to_port, _two_robot_graph
 from cslam_tpu.ops import se3 as jse3
 from cslam_tpu.pgo import solver as jsolver
 from cslam_tpu_torch.pgo import solver as tsolver
+from torch_threads import one_torch_thread  # noqa: F401
 
 POSE_ATOL = 2e-3
 

@@ -23,6 +23,7 @@ from cslam_tpu.ops import registration as J
 from cslam_tpu.utils import profiling as j_profiling
 from cslam_tpu_torch.ops import registration as T
 from cslam_tpu_torch.utils import profiling
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROT_TOL, TRANS_TOL = 1e-3, 1e-2
 PAD = 256
@@ -277,6 +278,53 @@ def test_compute_transform_batch_counts_icp_gate(known):
     assert T.compute_transform_batch([], VOXEL, 60, device="cpu") == []
     profiling.reset_spans()
     j_profiling.reset_spans()
+
+
+@pytest.fixture(scope="module")
+def padded_chunks(known):
+    """``compute_transform_batch_begin`` of chunks that are not a power of
+    two, in both packages: 3 pairs at cap 2 (chunks of 2 and 1) and 5 at
+    cap 8 (one chunk of 5, padded to the tier of 8 by repeating its last
+    pair). Returns per case (port handles, JAX handles, ``verify.pairs``)."""
+    pairs = known[0]
+    out = {}
+    for name, chunk, cap in (("3_at_cap_2", pairs[:3], 2),
+                             ("5_at_cap_8", pairs + pairs[:1], 8)):
+        profiling.reset_spans()
+        got = T.compute_transform_batch_begin(chunk, VOXEL, 60, pad_size=PAD,
+                                              max_pair_tier=cap, device="cpu")
+        for h in got:
+            T.compute_transform_batch_step(h)
+        counted = profiling.counters()["verify.pairs"]
+        want = J.compute_transform_batch_begin(chunk, VOXEL, 60, pad_size=PAD,
+                                               max_pair_tier=cap)
+        for h in want:
+            J.compute_transform_batch_step(h)
+        out[name] = (got, want, counted)
+    profiling.reset_spans()
+    j_profiling.reset_spans()
+    return out
+
+
+@pytest.mark.parametrize("case", ["3_at_cap_2", "5_at_cap_8"])
+def test_padded_chunks_match_reference(padded_chunks, case):
+    """Chunks padded to the JAX package's tiers: the same tier and live
+    count per chunk, the live pairs' flags equal, the verified pairs'
+    transforms and inlier counts within this file's limits; ``verify.pairs``
+    counts live pairs only."""
+    got, want, counted = padded_chunks[case]
+    assert [(h.p, h.T_dev.shape[0]) for h in got] == [
+        (h.p, np.asarray(h.T_dev).shape[0]) for h in want]
+    assert counted == sum(h.p for h in got) == int(case[0])
+    for hg, hw in zip(got, want):
+        assert len(hg.results) == hg.p
+        inl_w = np.asarray(hw.inl_dev)
+        for i, ((Zg, okg), (Zw, okw)) in enumerate(zip(hg.results,
+                                                       hw.results)):
+            assert okg == okw
+            if okw:
+                _assert_close_T(Zg, Zw)
+                assert abs(float(hg.inl_dev[i]) - float(inl_w[i])) <= 2.0
 
 
 @pytest.fixture(scope="module")

@@ -29,6 +29,7 @@ from cslam_tpu_torch.runtime.replay import (KittiCalib, KittiSequence,
                                             TinyImageDescriptor,
                                             write_kitti_sequence)
 from cslam_tpu_torch.utils import png
+from torch_threads import one_torch_thread  # noqa: F401
 
 ATE_TOL = 1e-3
 N_FRAMES = 14

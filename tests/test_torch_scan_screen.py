@@ -21,6 +21,7 @@ import torch
 
 from cslam_tpu_torch.ops import nns
 from cslam_tpu_torch.ops.topk import topk_ties_ascending
+from torch_threads import one_torch_thread  # noqa: F401
 
 N, D, B = 384, 32, 6
 

@@ -28,6 +28,7 @@ from cslam_tpu_torch.ops import nns
 from cslam_tpu_torch.ops import scancontext as tsc
 from cslam_tpu_torch.ops import topk as ttopk
 from helpers import matching_params
+from torch_threads import one_torch_thread  # noqa: F401
 
 DIST_TOL = 1e-6
 

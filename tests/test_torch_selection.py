@@ -25,6 +25,7 @@ from cslam_tpu_torch.selection import acm as tacm
 from cslam_tpu_torch.selection import mac as tmac
 from cslam_tpu_torch.selection.broker import Broker as TBroker
 from cslam_tpu_torch import types as ttypes
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _random_graph(seed, P=64, nodes=40, extra=30):

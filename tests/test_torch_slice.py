@@ -23,6 +23,7 @@ import pytest
 
 from cslam_tpu.runtime import simulator as jsim
 from cslam_tpu_torch.runtime import simulator as tsim
+from torch_threads import one_torch_thread  # noqa: F401
 
 ATE_TOL = 1e-3
 OVERRIDES = {"frontend.inter_robot_detection_period_sec": 3.0,

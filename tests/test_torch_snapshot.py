@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from cslam_tpu_torch.utils.snapshot import restore_robot, snapshot_robot
+from torch_threads import one_torch_thread  # noqa: F401
 
 POSE_TOL = 1e-4
 CFG = {"frontend.inter_robot_detection_period_sec": 3.0,

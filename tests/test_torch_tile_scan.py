@@ -16,6 +16,7 @@ import torch
 from cslam_tpu.ops.nns_pallas import TILE_N
 from cslam_tpu.ops.nns_pallas import cosine_topk_fused as jax_fused
 from cslam_tpu_torch.ops import nns
+from torch_threads import one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 1e-5, 1e-6
 N, D, B = 2 * TILE_N, 32, 6

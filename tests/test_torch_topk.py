@@ -12,6 +12,7 @@ import torch
 
 from cslam_tpu.ops import topk as jtopk
 from cslam_tpu_torch.ops import topk as ttopk
+from torch_threads import one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 1e-5, 1e-6
 

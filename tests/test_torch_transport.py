@@ -15,6 +15,7 @@ from cslam_tpu_torch.runtime.bus import RobotContext
 from cslam_tpu_torch.runtime.clock import VirtualClock
 from cslam_tpu_torch.runtime.transport import NetworkBus, TransportHub
 from cslam_tpu_torch.types import GlobalDescriptor, GlobalDescriptors
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def wait_for(predicate, timeout=5.0):
@@ -578,8 +579,11 @@ class TestTransientLocal:
             assert wait_for(
                 lambda: bus_a.connection_stats()["failovers"] >= 1
                 and bus_a.connection_stats()["connected"], timeout=10.0)
+            # deliver until both topics are in (one deliver() may run
+            # between the two frames' arrival)
             assert wait_for(
-                lambda: bus_b.deliver() or (got_a and got_b), timeout=10.0)
+                lambda: (bus_b.deliver(), bool(got_a and got_b))[1],
+                timeout=10.0)
             assert got_a == ["A"] and got_b == ["B"]
         finally:
             bus_a.close()

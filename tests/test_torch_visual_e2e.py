@@ -23,6 +23,7 @@ import pytest
 
 from chip_smoke import (_pose_xyz_yaw, _vis_render, _vis_scene,
                         _visual_config)
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROBOTS, STEPS, SCENES = 2, 8, 4
 BASELINE = 0.2

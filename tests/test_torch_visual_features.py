@@ -19,6 +19,7 @@ from cslam_tpu import native as J
 from cslam_tpu_torch import native as T
 from cslam_tpu_torch.native import fallback
 from test_visual_frontend import make_world, pose_xyz_yaw, render
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 REF_LIB = REPO / "native" / "libcslam_native.so"

@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 
 import test_visual_frontend as ref
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROT_TOL, TRANS_TOL = 1e-3, 1e-3
 

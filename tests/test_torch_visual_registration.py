@@ -26,6 +26,7 @@ from cslam_tpu.native import brief_describe as j_brief
 from cslam_tpu.native import fast_detect as j_fast
 from cslam_tpu_torch.ops import visual_registration as T
 from test_visual_frontend import CAM, make_world, pose_xyz_yaw, render
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROT_TOL, TRANS_TOL = 1e-3, 1e-3
 N = T.MAX_CORRESPONDENCES
@@ -116,6 +117,21 @@ def test_verify_keyframe_pairs_matches_reference(keyframe_pairs):
         if sw:
             assert ng >= 20           # clear of min_inliers
             _assert_close_T(Tg, Tw)
+
+
+def test_three_live_pairs_pad_to_tier_four(keyframe_pairs):
+    """Three live pairs run in the tier of four (one zero slot, as in the
+    JAX package): flags and inlier counts equal, transforms within the
+    file's limits."""
+    pairs = [keyframe_pairs[0], keyframe_pairs[2], keyframe_pairs[0]]
+    got = T.verify_keyframe_pairs(pairs, min_inliers=10, device="cpu")
+    want = J.verify_keyframe_pairs(pairs, min_inliers=10)
+    assert any(key[0] == "cpu" and key[1][0][0] == (4, N, 3)
+               for key in T.ALIGN_GRAPHS.keys)
+    assert [(g[1], g[2]) for g in got] == [(w[1], w[2]) for w in want]
+    assert [g[1] for g in got] == [True] * 3
+    for (Tg, _, _), (Tw, _, _) in zip(got, want):
+        _assert_close_T(Tg, Tw)
 
 
 def test_verify_keyframe_pair_matches_reference(keyframe_pairs):
