@@ -18,22 +18,32 @@ Builds the hand-written kernels from the sources in the checkout (one
   library yardstick, which the port never calls), warm and L2-flushed;
 * phase ``swarm`` — the port's ``SwarmSimulator`` on CUDA with 4 robots x
   120 keyframes (480 poses, the largest swarm on the dense MAC and PGO
-  tiers), plus a two-robot run on CUDA held against the same run on the CPU
-  (the plain versions);
+  tiers; the back end's warmup captures the PGO step programs of every
+  tier up to 480 poses, and a capture during the mission fails the run),
+  with ``pgo.optimize`` seconds, LM iterations, host reads and the step
+  programs' replays, plus a two-robot run on CUDA held against the same
+  run on the CPU (the plain versions);
 * phase ``swarm_floored`` — the same mission with the tiers pinned as
-  deployments pin them (``frontend.mac_p_floor`` and
-  ``backend.pgo_np_floor`` at 1024), so every selection runs MAC's
+  deployments pin them (``frontend.mac_p_floor``, ``backend.pgo_np_floor``
+  and ``backend.pgo_ne_floor`` at 1024), so every selection runs MAC's
   Woodbury/LOBPCG tier and every optimization PGO's coarse-corrected PCG
-  tier, with LOBPCG, LM and CG iterations and host reads counted;
+  tier, with LOBPCG, LM and CG iterations, host reads (at most one per
+  CG block of ``solver._CG_BLOCK`` iterations plus two per LM iteration
+  in each PCG solve) and captures (none after the warmup) counted;
 * phase ``large_tiers`` — MAC at ``benchmarks/selection_bench.py``'s three
   tiers (5 x 100 poses / 100 candidates, 10 x 200 / 400, 10 x 500 / 1000:
   P = 512, 2048, 8192) through the port's ACM, lambda_2 of each selection
   held against scipy, the P = 2048 selection against the same on the CPU;
-  GNC-TLS cold and warm on ``benchmarks/graphs``' 8 x 256 and 8 x 512
-  graphs (both outliers rejected, ATE within 0.05 m of the reference's
-  ``*_optimized.g2o``); LM on a 2 x 288 graph on CUDA against the CPU;
-  last, ``torch.profiler`` device times of one MAC evaluation at P = 8192
-  and one LM step at 4096 nodes;
+  GNC-TLS cold (first with the tier's captures, then again) and warm on
+  ``benchmarks/graphs``' 8 x 256 and 8 x 512 graphs (both outliers
+  rejected, ATE within 0.05 m of the reference's ``*_optimized.g2o``),
+  the LM steps replayed from CUDA graphs, and on 8 x 256 the cold solve
+  twice eagerly (the same step programs launched one by one) held against
+  the graphed one; the PCG tier's LM solve at 4096 nodes with CG blocks
+  of 16, 8, 32 and 16 iterations; LM on a 2 x 288 graph on CUDA against
+  the CPU; last, ``torch.profiler`` device times of one MAC evaluation at
+  P = 8192, one LM step, one PCG-tier LM solve and one CG block at 4096
+  nodes;
 * phase ``distributed`` — the multi-device mode with every robot's block
   on the one card: ``mesh_banks``, ``MeshDescriptorBanks.search_all`` over
   8 robot shards at ``benchmarks/mesh_bank_bench.py``'s width (131,072 x
@@ -654,14 +664,46 @@ def phase_frontend(results, failures):
     results["frontend"] = out
 
 
+def _solver_graphs():
+    """The PGO solver's step-program sets (``utils.tier_graphs.
+    StepGraphs``): the dense LM, the PCG-tier LM, the batched LM."""
+    from cslam_tpu_torch.pgo import distributed, solver
+    return (solver.DENSE_GRAPHS, solver.PCG_GRAPHS,
+            distributed.BATCHED_GRAPHS)
+
+
+def _solver_graph_counts():
+    """{set: {program: (captures, replays)}} of :func:`_solver_graphs`."""
+    return {g.name: {p: (c["captures"], c["replays"])
+                     for p, c in g.by_program.items()}
+            for g in _solver_graphs()}
+
+
+def _solver_graph_delta(before):
+    """Captures and replays per program since ``before``, and their
+    totals."""
+    after = _solver_graph_counts()
+    delta = {name: {p: {"captures": after[name][p][0] - before[name][p][0],
+                        "replays": after[name][p][1] - before[name][p][1]}
+                    for p in progs} for name, progs in after.items()}
+    return {"by_program": delta,
+            "captures": sum(d["captures"] for progs in delta.values()
+                            for d in progs.values()),
+            "replays": sum(d["replays"] for progs in delta.values()
+                           for d in progs.values())}
+
+
 class _Counters:
     """Counts, while it is entered, what the solvers do: LOBPCG calls and
-    iterations, chain + low-rank evaluations, LM solves and iterations
-    (and the padded node count of each), PCG solves and CG iterations
-    (one matvec each), and host reads of CUDA tensors (``bool``,
-    ``float``, ``int``, ``item``, ``tolist``, ``cpu`` and waits on CUDA
-    events). It wraps the functions from here, leaving the package as it
-    is, and restores them on exit."""
+    iterations, chain + low-rank evaluations, LM solves with their LM and
+    CG iterations (the solver's own device counters, returned with each
+    result; under a CUDA graph the matvec runs only at capture) and the
+    padded node count of each, PCG-tier solves with the host reads of
+    each, host reads of CUDA tensors (``bool``, ``float``, ``int``,
+    ``item``, ``tolist``, ``cpu``, and every wait on a CUDA event or
+    stream: the solver's status reads are event waits), and the step
+    programs' captures and replays. It wraps the functions from here,
+    leaving the package as it is, and restores them on exit."""
 
     def __enter__(self):
         import torch
@@ -672,6 +714,14 @@ class _Counters:
         self.lm_calls = self.lm_iters = self.pcg_solves = self.cg_iters = 0
         self.host_reads = 0
         self.lm_nodes = []
+        #: (host reads, LM iterations, CG iterations) of each PCG solve
+        self.pcg_reads = []
+        #: (rel_tol, LM iterations) of each LM solve, in order
+        self.lm_solves = []
+        #: poses of the last LM solve with rel_tol >= 1e-5 (in a GNC: the
+        #: end of the graduation, before the final polish)
+        self.held_poses = None
+        self._graphs = _solver_graph_counts()
         self._saved = []
 
         def patch(owner, name, make):
@@ -695,28 +745,23 @@ class _Counters:
 
         def lm(orig):
             def run(g, *args, **kwargs):
+                reads = self.host_reads
                 res = orig(g, *args, **kwargs)
                 self.lm_calls += 1
-                self.lm_iters += int(res.iterations)
+                self.lm_iters += res.iterations
+                rel_tol = kwargs.get("rel_tol", 1e-7)
+                self.lm_solves.append((rel_tol, res.iterations))
+                if rel_tol >= 1e-5:
+                    self.held_poses = res.poses
+                self.cg_iters += res.cg_iterations
                 self.lm_nodes.append(g.num_nodes)
+                if g.num_nodes > solver._DENSE_SOLVE_MAX_NODES:
+                    self.pcg_solves += 1
+                    self.pcg_reads.append((self.host_reads - reads,
+                                           res.iterations,
+                                           res.cg_iterations))
                 return res
             return run
-
-        def pcg(orig):
-            def run(*args, **kwargs):
-                self.pcg_solves += 1
-                return orig(*args, **kwargs)
-            return run
-
-        def make_matvec(orig):
-            def make(*args, **kwargs):
-                matvec = orig(*args, **kwargs)
-
-                def counted(x):
-                    self.cg_iters += 1
-                    return matvec(x)
-                return counted
-            return make
 
         def read(orig):
             def run(t, *args, **kwargs):
@@ -734,26 +779,40 @@ class _Counters:
         patch(fiedler, "lobpcg_standard", lobpcg)
         patch(fiedler, "fiedler_pair_chain_lowrank", evaluation)
         patch(solver, "lm_optimize", lm)
-        patch(solver, "_pcg", pcg)
-        patch(solver, "_make_matvec", make_matvec)
         for name in ("__bool__", "__float__", "__int__", "item", "tolist",
                      "cpu"):
             patch(torch.Tensor, name, read)
         patch(torch.cuda.Event, "synchronize", wait)
+        patch(torch.cuda.Stream, "synchronize", wait)
         return self
 
     def __exit__(self, *exc):
         for owner, name, orig in reversed(self._saved):
             setattr(owner, name, orig)
+        self.graphs = _solver_graph_delta(self._graphs)
         return False
 
+    def pcg_read_excess(self) -> list:
+        """PCG-tier solves whose host reads exceed one per ``_CG_BLOCK``
+        CG iterations plus two per LM iteration: (reads, bound)."""
+        from cslam_tpu_torch.pgo import solver
+        K = solver._CG_BLOCK
+        return [(reads, cg / K + 2 * it) for reads, it, cg in self.pcg_reads
+                if reads > cg / K + 2 * it]
+
     def summary(self) -> dict:
-        return {"lobpcg_calls": self.lobpcg_calls,
-                "lobpcg_iters": self.lobpcg_iters,
-                "evaluations": self.evaluations,
-                "lm_calls": self.lm_calls, "lm_iters": self.lm_iters,
-                "pcg_solves": self.pcg_solves, "cg_iters": self.cg_iters,
-                "host_reads": self.host_reads}
+        out = {"lobpcg_calls": self.lobpcg_calls,
+               "lobpcg_iters": self.lobpcg_iters,
+               "evaluations": self.evaluations,
+               "lm_calls": self.lm_calls, "lm_iters": self.lm_iters,
+               "pcg_solves": self.pcg_solves, "cg_iters": self.cg_iters,
+               "host_reads": self.host_reads,
+               "pcg_solve_host_reads": sum(r for r, _, _ in self.pcg_reads)}
+        graphs = getattr(self, "graphs", None)
+        if graphs is not None:
+            out.update(graph_captures=graphs["captures"],
+                       graph_replays=graphs["replays"])
+        return out
 
 
 def _build_acm(nb_robots, nb_poses, nb_candidates, nb_fixed, rng, device):
@@ -934,10 +993,16 @@ def _ate(est, gt):
 def _large_tiers_pgo(failures):
     """GNC cold (``gnc_optimize``) and warm (``gnc_reoptimize`` from the
     cold solution, translations scaled by 1 + 1e-6, carrying its weights)
-    on ``benchmarks/graphs``' 8 x 256 and 8 x 512 graphs on the card.
-    Checked: both outliers rejected, ATE against ``*_gt.g2o`` within 0.05 m
-    of the reference's ``*_optimized.g2o``. Returns the records and the
-    last graph's arrays with its cold weights."""
+    on ``benchmarks/graphs``' 8 x 256 and 8 x 512 graphs on the card, each
+    solve's LM steps replayed from the tier's CUDA graphs: ``cold_first``
+    is the tier's first solve (its captures included), ``cold`` the same
+    solve again. On 8 x 256 the cold solve also runs twice eagerly (the
+    same step programs launched one by one, ``eager=True``). Checked: both
+    outliers rejected, ATE against ``*_gt.g2o`` within 0.05 m of the
+    reference's ``*_optimized.g2o``; the PCG solves' host reads at most one
+    per ``_CG_BLOCK`` CG iterations plus two per LM iteration; graphed
+    against eager on 8 x 256 (:func:`_graphed_vs_eager`). Returns the
+    records and the last graph's arrays with its cold weights."""
     import dataclasses
 
     import numpy as np
@@ -953,39 +1018,45 @@ def _large_tiers_pgo(failures):
         ref_ate = _ate(read_g2o(f"{base}_optimized.g2o")[0], gt)
         robust = np.nonzero((arrays.robust * arrays.edge_valid).cpu().numpy()
                             > 0)[0]
+        valid = arrays.node_valid.cpu().numpy() > 0
         rec = {"graph": name, "nodes": len(g), "padded_nodes":
                arrays.num_nodes, "genuine_loops": len(robust) - 2,
                "reference_optimized_ate_m": ref_ate,
                "init_ate_m": _ate({v.key.as_tuple(): v.pose for v in
                                    g.values_from_arrays(arrays.poses)}, gt)}
-        runs = {}
-        for phase in ("cold", "warm"):
+        runs, counts = {}, {}
+        phases = ["cold_first", "cold", "warm"]
+        if name == "pgo_8x256":
+            phases += ["eager_1", "eager_2"]
+        for phase in phases:
             with _Counters() as count:
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                if phase == "cold":
-                    res = solver.gnc_optimize(arrays)
-                else:
+                if phase == "warm":
                     poses = runs["cold"].poses.clone()
                     poses[:, :3, 3] *= 1.0 + 1e-6
                     res = solver.gnc_reoptimize(
                         dataclasses.replace(arrays, poses=poses),
                         runs["cold"].weights)
+                else:
+                    res = solver.gnc_optimize(
+                        arrays, eager=phase.startswith("eager"))
                 res.poses.cpu()
                 seconds = time.perf_counter() - t0
-            runs[phase] = res
+            runs[phase], counts[phase] = res, count
             c = count.summary()
             w = res.weights.cpu().numpy()[robust]
             est = {v.key.as_tuple(): v.pose
                    for v in g.values_from_arrays(res.poses)}
             rec[phase] = {
                 "seconds": seconds, "ate_m": _ate(est, gt),
+                "outer_iterations": res.outer_iterations,
                 "outliers_rejected": int((w[-2:] < 0.5).sum()),
                 "loops_false_rejected": int((w[:-2] < 0.5).sum()),
-                "lm_solves": c["lm_calls"], "lm_iters": c["lm_iters"],
-                "cg_iters_per_lm_step": (c["cg_iters"] / c["pcg_solves"]
-                                         if c["pcg_solves"] else None),
-                "host_reads": c["host_reads"], **c}
+                "lm_solves": c["lm_calls"],
+                "cg_iters_per_lm_iteration": (c["cg_iters"] / c["lm_iters"]
+                                              if c["lm_iters"] else None),
+                **c, "graphs": count.graphs["by_program"]["lm_pcg"]}
             if rec[phase]["outliers_rejected"] != 2:
                 failures.append(f"large_tiers {name} {phase}: "
                                 f"{rec[phase]['outliers_rejected']} of 2 "
@@ -994,9 +1065,96 @@ def _large_tiers_pgo(failures):
                 failures.append(f"large_tiers {name} {phase}: ATE "
                                 f"{rec[phase]['ate_m']} > reference "
                                 f"{ref_ate} + 0.05")
+            excess = count.pcg_read_excess()
+            if excess and not phase.startswith("eager"):
+                failures.append(f"large_tiers {name} {phase}: PCG solves "
+                                f"over their host-read bound {excess[:3]}")
+            if phase == "cold" and count.graphs["captures"]:
+                failures.append(f"large_tiers {name}: a second cold solve "
+                                "captured again")
+        rec["solver_pool_bytes"] = solver.PCG_GRAPHS.pool_bytes
+        if "eager_1" in runs:
+            rec["graphed_vs_eager"] = _graphed_vs_eager(
+                f"large_tiers {name}", counts, runs, robust, valid, failures)
         print("  PGO " + json.dumps(rec))
         out.append(rec)
     return out, (arrays, runs["cold"].weights)
+
+
+#: graphed GNC positions against eager at the end of the graduation, where
+#: every LM decision was the same: the card's atomic sums alone put two
+#: eager runs of 8 x 256 up to 2.8e-3 m apart there (other pairs 1e-4), so
+#: the limit is a fifth of the ATE window, not the 2e-3 of one LM solve
+_GNC_GRADUATION_LIMIT_M = 1e-2
+
+
+def _graphed_vs_eager(tag, counts, runs, robust, valid, failures):
+    """The graphed cold GNC (``runs["cold"]``) against the two eager ones
+    (``counts``: each run's :class:`_Counters`): the same rejected robust
+    edges and outer iterations; the same LM iterations in each solve whose
+    stop test lies above float32's resolution of the cost (``rel_tol`` >=
+    1e-5: every solve but the final polish, whose ``rel_tol`` 1e-7 is below
+    it, so rounding picks its count and the eager runs differ there among
+    themselves); positions at the end of the graduation (the last solve at
+    ``rel_tol`` >= 1e-5, every decision so far the same in all three runs)
+    within ``_GNC_GRADUATION_LIMIT_M`` of each eager run's. Reported beside
+    it: the eager runs' own spread there (and max(10 x it, 1e-5 m)) and
+    after the polish, and the graphed run's difference after the
+    polish."""
+    import numpy as np
+    eager = ("eager_1", "eager_2")
+    modes = ("cold", *eager)
+
+    def rejected(res):
+        return set(robust[res.weights.cpu().numpy()[robust] < 0.5].tolist())
+
+    def positions(poses):
+        return poses.cpu().numpy()[valid][:, :3, 3]
+
+    def diff(a, b):
+        return float(np.abs(a - b).max())
+    solves = {p: counts[p].lm_solves for p in modes}
+    held = {p: [it for tol, it in v if tol >= 1e-5]
+            for p, v in solves.items()}
+    out = {"rejected_equal": len({frozenset(rejected(runs[p]))
+                                  for p in modes}) == 1,
+           "outer_iterations": [runs[p].outer_iterations for p in modes],
+           "lm_iters_total": [sum(it for _, it in v)
+                              for v in solves.values()],
+           "lm_iters_below_resolution": [[it for tol, it in v if tol < 1e-5]
+                                         for v in solves.values()],
+           "lm_iters_held_equal": len({tuple(v) for v in
+                                       held.values()}) == 1,
+           "limit_m": _GNC_GRADUATION_LIMIT_M}
+    if not out["rejected_equal"]:
+        failures.append(f"{tag}: graphed and eager reject different edges")
+    if len(set(out["outer_iterations"])) != 1:
+        failures.append(f"{tag}: outer iterations graphed / eager "
+                        f"{out['outer_iterations']}")
+    if not out["lm_iters_held_equal"]:
+        failures.append(f"{tag}: LM iterations per solve graphed / eager "
+                        f"{solves}")
+    if any(counts[p].held_poses is None for p in modes):
+        failures.append(f"{tag}: no LM solve at rel_tol >= 1e-5 recorded, "
+                        "graphed positions not compared with eager")
+        return out
+    at_end = {p: positions(counts[p].held_poses) for p in modes}
+    final = {p: positions(runs[p].poses) for p in modes}
+    out.update(
+        graduation_eager_spread_m=diff(at_end["eager_1"], at_end["eager_2"]),
+        graduation_graphed_vs_eager_m={p: diff(at_end["cold"], at_end[p])
+                                       for p in eager},
+        graduation_ten_eager_spreads_m=max(10.0 * diff(
+            at_end["eager_1"], at_end["eager_2"]), 1e-5),
+        final_eager_spread_m=diff(final["eager_1"], final["eager_2"]),
+        final_graphed_vs_eager_m={p: diff(final["cold"], final[p])
+                                  for p in eager})
+    worst = max(out["graduation_graphed_vs_eager_m"].values())
+    if not worst <= _GNC_GRADUATION_LIMIT_M:
+        failures.append(f"{tag}: graphed positions at the end of the "
+                        f"graduation {out['graduation_graphed_vs_eager_m']} "
+                        f"m from eager, limit {_GNC_GRADUATION_LIMIT_M}")
+    return out
 
 
 def _two_by_288(device, seed=7, n=288):
@@ -1051,6 +1209,7 @@ def phase_large_tiers(results, failures):
     out = results["large_tiers"] = {}
     out["mac"], (mac, rounded) = _large_tiers_mac(failures)
     out["pgo"], (arrays_pgo, weights) = _large_tiers_pgo(failures)
+    out["cg_block_sizes"] = _cg_block_sizes(arrays_pgo, weights)
     res = {}
     for device in ("cuda", "cpu"):
         arrays = _two_by_288(device)
@@ -1072,6 +1231,75 @@ def phase_large_tiers(results, failures):
         lambda: solver.lm_optimize(arrays_pgo, weights, max_iters=1), 3)
     print(f"  one LM step at {arrays_pgo.num_nodes} nodes profile: "
           + json.dumps(out["lm_step_profile"]))
+    out["pcg_programs_profile"] = _pcg_programs_profile(arrays_pgo, weights)
+
+
+_PCG_SOLVE = {"max_iters": 30, "rel_tol": 1e-5}   # gnc_optimize's first LM
+
+
+def _cg_block_sizes(arrays, weights, sizes=(16, 8, 32, 16)):
+    """The PCG tier's LM solve (``_PCG_SOLVE`` with the cold GNC weights,
+    from the init poses) at CG block sizes K (``solver._CG_BLOCK``) 16, 8,
+    32 and 16 again: wall seconds, host reads, LM and CG iterations, CG
+    blocks replayed and the masked CG iterations they ran (blocks x K - CG
+    iterations). Each K's first solve (its captures) runs untimed
+    before."""
+    import numpy as np
+    import torch
+
+    from cslam_tpu_torch.pgo import solver
+    out, first = [], None
+    saved = solver._CG_BLOCK
+    try:
+        for K in sizes:
+            solver._CG_BLOCK = K
+            solver.lm_optimize(arrays, weights, **_PCG_SOLVE).poses.cpu()
+            with _Counters() as count:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = solver.lm_optimize(arrays, weights, **_PCG_SOLVE)
+                res.poses.cpu()
+                seconds = time.perf_counter() - t0
+            blocks = count.graphs["by_program"]["lm_pcg"]["cg"]["replays"]
+            first = res.poses.cpu().numpy() if first is None else first
+            rec = {"K": K, "seconds": seconds,
+                   "host_reads": count.host_reads,
+                   "lm_iters": res.iterations, "cg_iters": res.cg_iterations,
+                   "cg_blocks": blocks,
+                   "masked_cg_iters": blocks * K - res.cg_iterations,
+                   "captures": count.graphs["captures"],
+                   "max_pose_diff_vs_first": float(np.abs(
+                       res.poses.cpu().numpy() - first).max())}
+            print("  CG block " + json.dumps(rec))
+            out.append(rec)
+    finally:
+        solver._CG_BLOCK = saved
+    return out
+
+
+def _pcg_programs_profile(arrays, weights):
+    """``torch.profiler`` of the PCG tier's programs at ``arrays``' tier
+    (after every timing): a whole ``_PCG_SOLVE`` LM solve (graph launches,
+    device time and idle share inside it), and one CG block replayed after
+    that solve's stop (its K iterations masked, every kernel run: the
+    kernels and device time of a block)."""
+    from cslam_tpu_torch.pgo import solver
+    out = {"K": solver._CG_BLOCK}
+    out["solve"] = _device_profile(
+        lambda: solver.lm_optimize(arrays, weights, **_PCG_SOLVE), 2)
+    operands = solver._lm_operands(arrays, weights, _PCG_SOLVE["max_iters"],
+                                   150, 1e-4, 1e-6, _PCG_SOLVE["rel_tol"])
+    with solver.PCG_GRAPHS.solve(arrays.device, operands,
+                                 coarse=solver._USE_COARSE,
+                                 steps=solver._CG_BLOCK) as loop:
+        solver._run_pcg(loop)
+        out["cg_block"] = _device_profile(lambda: loop.run("cg"), 20)
+    block = out["cg_block"]
+    if block.get("device_ms"):
+        out["device_ms_per_cg_iteration"] = block["device_ms"] / out["K"]
+    print(f"  PCG programs at {arrays.num_nodes} nodes profile: "
+          + json.dumps(out))
+    return out
 
 
 # -- phase distributed --------------------------------------------------------
@@ -1196,6 +1424,8 @@ def _dist_pgo(failures, central):
         run = {"seconds": seconds, "sweeps_used": info.sweeps_used,
                "lm_iters": info.lm_iterations,
                "host_reads": count.host_reads,
+               "graph_captures": count.graphs["captures"],
+               "graph_replays": count.graphs["replays"],
                "ate_m": _ate({(unslot[s], kf): p
                               for (s, kf), p in est.items()}, gt),
                "outliers_rejected": int((w[-2:] < 0.5).sum()),
@@ -1232,7 +1462,7 @@ def _dist_swarm(failures, robots=4, keyframes=60):
     ``tests/test_runtime.py``'s swarm case) on the card. Checked: the
     distributed solve ran, every robot has estimates, every robot's ATE <=
     odometry + 0.05 m, at least 2 improve, K1 launched."""
-    wall, launches, spans, per_robot = _swarm_run(
+    wall, launches, spans, per_robot, count = _swarm_run(
         "swarm_distributed", failures, robots, keyframes,
         {"backend.pgo_mode": "distributed",
          "backend.distributed_max_sweeps": 12})
@@ -1254,6 +1484,7 @@ def _dist_swarm(failures, robots=4, keyframes=60):
     return {"wall_s": wall, "k1_launches": launches,
             "distributed_solves": solves, "improved": improved,
             "pgo_optimize_s": spans.get("pgo.optimize", {}).get("total_s"),
+            **count.summary(), "graphs": count.graphs,
             "robots": per_robot}
 
 
@@ -1339,7 +1570,8 @@ def _swarm_run(name, failures, robots, keyframes, overrides=None):
     """One simulated mission of ``robots`` x ``keyframes`` on the card (the
     main path), with ``overrides`` added to its config; checks robot 0's ATE
     and fixed inter-robot edges and the bank scan's launches. Returns
-    (wall seconds, K1 launches, spans, per-robot records)."""
+    (wall seconds, K1 launches, spans, per-robot records, the
+    :class:`_Counters` of the mission, after the nodes' warmups)."""
     import torch
 
     from cslam_tpu_torch.ops import nns
@@ -1359,10 +1591,11 @@ def _swarm_run(name, failures, robots, keyframes, overrides=None):
     torch.cuda.synchronize()
     profiling.reset_spans()
     nns.launches = 0
-    t0 = time.perf_counter()
-    sim.run(keyframes * 0.5 + 10.0, dt=0.25)   # the main path
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with _Counters() as count:
+        t0 = time.perf_counter()
+        sim.run(keyframes * 0.5 + 10.0, dt=0.25)   # the main path
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     launches = nns.launches
     print(profiling.report())
     spans = profiling.spans()
@@ -1391,12 +1624,45 @@ def _swarm_run(name, failures, robots, keyframes, overrides=None):
     if not r0["ate_opt"] <= r0["ate_odom"] + 0.05:
         failures.append(f"{name}: optimized ATE {r0['ate_opt']} > odometry "
                         f"ATE {r0['ate_odom']} + 0.05")
-    return wall, launches, spans, per_robot
+    return wall, launches, spans, per_robot, count
+
+
+def _pgo_record(tag, count, spans, failures):
+    """The back end's PGO over a mission: ``pgo.optimize`` seconds, LM and
+    CG iterations, host reads (all, and those of PCG-tier solves), the step
+    programs' captures and replays, the graph pool's bytes (the solver
+    sets' captures, all made by the warmup, and the device's shared pool).
+    Limits: no capture after the warmup;
+    each PCG solve within one host read per ``_CG_BLOCK`` CG iterations
+    plus two per LM iteration."""
+    from cslam_tpu_torch.utils import tier_graphs
+    graphs = count.graphs
+    rec = {"pgo_optimize_s": spans.get("pgo.optimize", {}).get("total_s"),
+           **count.summary(), "graphs": graphs,
+           "solver_pool_bytes": {g.name: g.pool_bytes
+                                 for g in _solver_graphs()},
+           "shared_pool_bytes": tier_graphs.pool_bytes("cuda")}
+    if graphs["captures"]:
+        failures.append(f"{tag}: {graphs['captures']} PGO graph captures "
+                        f"after the warmup ({graphs['by_program']})")
+    excess = count.pcg_read_excess()
+    if excess:
+        failures.append(f"{tag}: PCG solves over their host-read bound "
+                        f"{excess[:3]}")
+    print(f"  {tag} PGO " + json.dumps(rec))
+    return rec
+
+
+#: the back end's warmup in the swarm missions: every tier up to the
+#: mission's 480 poses (``DecentralizedPGO.warmup``), as a deployment
+#: warms the JAX package's solver
+_SWARM_WARMUP = {"backend.warmup_poses": 480, "backend.warmup_edges": 1024}
 
 
 def phase_swarm(results, failures, robots=4, keyframes=120):
-    wall, launches, spans, per_robot = _swarm_run("swarm", failures, robots,
-                                                  keyframes)
+    wall, launches, spans, per_robot, count = _swarm_run(
+        "swarm", failures, robots, keyframes, _SWARM_WARMUP)
+    pgo = _pgo_record("swarm", count, spans, failures)
 
     # small input held against the plain versions on the CPU
     cuda_sim, cpu_sim = _two_robot_sim("cuda"), _two_robot_sim("cpu")
@@ -1409,22 +1675,25 @@ def phase_swarm(results, failures, robots=4, keyframes=120):
     if not abs(ate_cuda - ate_cpu) <= 1e-3:
         failures.append(f"two-robot sim: ATE {ate_cuda} vs {ate_cpu}")
     results["swarm"] = {"launches": launches, "wall_s": wall,
-                        "spans": spans, "robots": per_robot}
+                        "spans": spans, "robots": per_robot, "pgo": pgo}
 
 
 def phase_swarm_floored(results, failures, robots=4, keyframes=120):
     """The swarm mission with the tiers pinned as deployments pin them
-    (``frontend.mac_p_floor`` and ``backend.pgo_np_floor`` at 1024): every
-    selection runs the Woodbury/LOBPCG MAC tier, every optimization the
-    coarse-corrected PCG tier, on the card."""
+    (``frontend.mac_p_floor``, ``backend.pgo_np_floor`` and
+    ``backend.pgo_ne_floor`` at 1024): every selection runs the
+    Woodbury/LOBPCG MAC tier, every optimization the coarse-corrected PCG
+    tier, on the card, its step programs captured by the back end's
+    warmup."""
     from cslam_tpu_torch.pgo import solver
     from cslam_tpu_torch.selection import mac
-    with _Counters() as count:
-        wall, launches, spans, per_robot = _swarm_run(
-            "swarm_floored", failures, robots, keyframes,
-            {"frontend.mac_p_floor": 1024, "backend.pgo_np_floor": 1024})
+    wall, launches, spans, per_robot, count = _swarm_run(
+        "swarm_floored", failures, robots, keyframes,
+        {"frontend.mac_p_floor": 1024, "backend.pgo_np_floor": 1024,
+         "backend.pgo_ne_floor": 1024, **_SWARM_WARMUP})
     tiers = sorted(mac._SEEN_TIERS)
-    print(f"  MAC tiers seen {tiers}; " + json.dumps(count.summary()))
+    print(f"  MAC tiers seen {tiers}")
+    pgo = _pgo_record("swarm_floored", count, spans, failures)
     if not any(p == 1024 and mf > 0 for p, _, mf in tiers):
         failures.append("swarm_floored: no MAC solve on the Woodbury tier")
     if count.pcg_solves < 1:
@@ -1433,7 +1702,7 @@ def phase_swarm_floored(results, failures, robots=4, keyframes=120):
         failures.append("swarm_floored: a PGO solve on the dense tier")
     results["swarm_floored"] = {"launches": launches, "wall_s": wall,
                                 "spans": spans, "robots": per_robot,
-                                **count.summary()}
+                                **pgo}
 
 
 # -- phase lidar ------------------------------------------------------------

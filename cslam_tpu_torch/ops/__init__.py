@@ -36,8 +36,9 @@ def cholesky_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     Where ``A`` is not positive definite the result is all NaN, as the JAX
     package's ``cho_factor`` + ``cho_solve`` give (``torch.linalg.cholesky``
     would raise): the solvers' accept/reject tests then reject the step.
+    The choice is made on the device (no host read), so the solve can be
+    captured in a CUDA graph.
     """
     L, info = torch.linalg.cholesky_ex(A)
-    if int(info) != 0:
-        return torch.full_like(b, float("nan"))
-    return torch.cholesky_solve(b, L)
+    x = torch.cholesky_solve(b, L)
+    return torch.where(info == 0, x, torch.full_like(x, float("nan")))

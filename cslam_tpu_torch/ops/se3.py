@@ -138,14 +138,16 @@ def log(T: torch.Tensor) -> torch.Tensor:
     W = hat(w)
     eye = _eye3(w, W.shape[:-2])
     V = eye + b[..., None, None] * W + c[..., None, None] * (W @ W)
-    v = torch.linalg.solve(V, t[..., None])[..., 0]
+    # solve_ex: no error check, so no host read (V is invertible)
+    v = torch.linalg.solve_ex(V, t[..., None])[0][..., 0]
     return torch.cat([w, v], dim=-1)
 
 
 def _rt_to_matrix(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     batch = R.shape[:-2]
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype,
-                          device=R.device).expand(*batch, 1, 4)
+    # the identity's last row, made on the device (no host copy)
+    bottom = torch.eye(4, dtype=R.dtype, device=R.device)[3:].expand(
+        *batch, 1, 4)
     top = torch.cat([R, t[..., None]], dim=-1)
     return torch.cat([top, bottom], dim=-2)
 

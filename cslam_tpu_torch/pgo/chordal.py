@@ -89,10 +89,11 @@ def chordal_initialize(g: PoseGraphArrays,
     X = cholesky_solve(N, rhs)                        # [3Np, 3]
     # [b, n, s] -> M[n, s, b] (row s of M_n across components b)
     M = X.reshape(3, Np, 3).permute(1, 2, 0)
-    if not bool(torch.isfinite(M).all()):
-        # not positive definite: NaN poses, which the caller's cost
-        # comparison rejects (the SVD below would raise on them)
-        return torch.full((Np, 4, 4), float("nan"), dtype=dtype, device=dev)
+    # not positive definite: NaN poses, which the caller's cost comparison
+    # rejects; chosen on the device (no host read), the SVD below fed
+    # identities instead (it would raise on NaN)
+    finite = torch.isfinite(M).all()
+    M = torch.where(finite, M, torch.eye(3, dtype=dtype, device=dev))
 
     # project to SO(3)
     U, _, Vt = torch.linalg.svd(M)
@@ -118,5 +119,6 @@ def chordal_initialize(g: PoseGraphArrays,
     poses[:, :3, :3] = R
     poses[:, :3, 3] = t
     # keep padded nodes at identity
-    return torch.where(g.node_valid[:, None, None] > 0, poses,
-                       torch.eye(4, dtype=dtype, device=dev)[None])
+    poses = torch.where(g.node_valid[:, None, None] > 0, poses,
+                        torch.eye(4, dtype=dtype, device=dev)[None])
+    return torch.where(finite, poses, torch.full_like(poses, float("nan")))

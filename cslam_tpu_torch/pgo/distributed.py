@@ -27,11 +27,12 @@ as eager PyTorch over the mesh: on a ``StackedMesh`` (every robot in one
 process) the local solves of one sweep are ONE batched Levenberg-Marquardt
 (:func:`_batched_lm`: one linearization over the R blocks and one batched
 Cholesky per iteration, each robot with its own damping, accept/reject and
-stop, as each device's ``while_loop`` had); on a ``ProcessGroupMesh``
-each rank runs ``pgo.solver.lm_optimize`` on its own block. The JAX
-package's ``lax`` loops become Python loops with one host read per sweep
-(the stop test) and one per iteration of the batched LM (have all robots
-stopped?); nothing is read per robot.
+stop, as each device's ``while_loop`` had), a step program captured once
+per tier as ``pgo.solver``'s LM steps are; on a ``ProcessGroupMesh`` each
+rank runs ``pgo.solver.lm_optimize`` on its own block. The JAX package's
+outer ``lax`` loop becomes a Python loop with one host read per sweep (the
+stop test); the batched LM reads one status per step, with the next step
+already queued; nothing is read per robot.
 """
 from __future__ import annotations
 
@@ -48,6 +49,7 @@ from cslam_tpu_torch.pgo.factor_graph import (FactorGraph, PoseGraphArrays,
                                               _tier)
 from cslam_tpu_torch.types import PoseGraphEdge, PoseKey
 from cslam_tpu_torch.utils.robot_mesh import AXIS, RobotMesh  # noqa: F401
+from cslam_tpu_torch.utils.tier_graphs import StepGraphs
 
 # warm-mode mu0: intra-robot robust chi2 above this multiple of barc_sq at
 # the carried (previously converged) poses counts as a previous-round
@@ -484,40 +486,39 @@ def _robot_costs(poses: torch.Tensor, gf: PoseGraphArrays,
                   + torch.sum((rp * rp).reshape(R, -1), 1))
 
 
-@highest_precision
-def _batched_lm(g: PoseGraphArrays, weights: torch.Tensor,
-                max_iters: int = 50, init_lambda: float = 1e-4,
-                rel_tol: float = 1e-7):
-    """``solver.lm_optimize`` on each of R stacked subgraphs (dense tier,
-    ``Np <= solver._DENSE_SOLVE_MAX_NODES``) at once.
+def _batched_init(s, o, robots, **_):
+    gf, w = solver._graph_of(o), o["weights"]
+    dev = gf.poses.device
+    iters = torch.zeros(robots, dtype=torch.int64, device=dev)
+    active = iters < o["caps"][0]
+    return {"poses": gf.poses, "current": _robot_costs(gf.poses, gf, w,
+                                                       robots),
+            "lam": o["tols"][:1].repeat(robots), "active": active,
+            "iters": iters, "status": _batched_status(active, iters)}
 
-    Each robot keeps its own damping, cost, accept/reject and stop, as the
-    JAX package's per-device ``while_loop`` did: a stopped robot is frozen
-    by a mask, so its poses and iteration count are those ``lm_optimize``
-    gives on that robot alone. Per iteration: one linearization over the R
-    blocks, one batched Cholesky of ``[R, 6Np, 6Np]`` (a robot whose
-    matrix is not positive definite gets a NaN step and rejects it, without
-    a host read), and one host read (have all robots stopped?). Returns
-    (poses ``[R, Np, 4, 4]``, iterations ``[R]`` int64 tensor).
-    """
-    R, Np = g.poses.shape[:2]
-    dtype, dev = g.poses.dtype, g.poses.device
-    gf = _flatten(g)
-    w = weights.reshape(-1)
+
+def _batched_status(active, iters):
+    zero = torch.zeros_like(iters[0])
+    return solver._status(~torch.any(active), torch.amax(iters), zero, zero)
+
+
+def _batched_step(s, o, robots, steps=1, **_):
+    """``steps`` iterations of every robot's LM, each update selected by
+    the robot's ``active`` flag (cleared at its stop or its cap)."""
+    gf, w = solver._graph_of(o), o["weights"]
+    R = robots
+    N, Ne = gf.poses.shape[0], gf.edge_i.shape[0]
+    Np = N // R
+    dtype, dev = gf.poses.dtype, gf.poses.device
     we = w * gf.edge_valid
-    node_robot = torch.arange(R, device=dev).repeat_interleave(Np)
-    edge_robot = torch.arange(R, device=dev).repeat_interleave(
-        g.edge_i.shape[1])
-    ei, ej = g.edge_i.reshape(-1), g.edge_j.reshape(-1)
+    node_robot = torch.arange(N, device=dev) // Np
+    edge_robot = torch.arange(Ne, device=dev) // (Ne // R)
+    ei, ej = gf.edge_i % Np, gf.edge_j % Np
     nodes = torch.arange(Np, device=dev)
     eye6 = torch.eye(6, dtype=dtype, device=dev)
-
-    poses = gf.poses
-    current = _robot_costs(poses, gf, w, R)
-    lam = torch.full((R,), init_lambda, dtype=dtype, device=dev)
-    active = torch.ones(R, dtype=torch.bool, device=dev)
-    iters = torch.zeros(R, dtype=torch.int64, device=dev)
-    for _ in range(max_iters):
+    poses, current, lam = s["poses"], s["current"], s["lam"]
+    active, iters = s["active"], s["iters"]
+    for _ in range(steps):
         r, Ji, Jj, rp, Jp = solver._linearize(poses, gf)
         grad = solver._assemble_grad(gf, Ji, Jj, Jp, r * we[:, None], rp)
         D = solver._hessian_blocks(gf, Ji, Jj, Jp, w)
@@ -534,7 +535,11 @@ def _batched_lm(g: PoseGraphArrays, weights: torch.Tensor,
         H[:, nodes, nodes] += (D + damp).reshape(R, Np, 6, 6)
         Hm = H.permute(0, 1, 3, 2, 4).reshape(R, Np * 6, Np * 6)
         L, info = torch.linalg.cholesky_ex(Hm)
-        delta = torch.cholesky_solve(-grad.reshape(R, Np * 6, 1), L)
+        # two triangular solves (cuBLAS), not the batched cholesky_solve
+        # (MAGMA on the card, which a CUDA graph may not capture)
+        y = torch.linalg.solve_triangular(L, -grad.reshape(R, Np * 6, 1),
+                                          upper=False)
+        delta = torch.linalg.solve_triangular(L.mT, y, upper=True)
         delta = torch.where((info == 0)[:, None, None], delta,
                             torch.full_like(delta, float("nan")))
         delta = delta.reshape(R * Np, 6) * gf.node_valid[:, None]
@@ -548,14 +553,52 @@ def _batched_lm(g: PoseGraphArrays, weights: torch.Tensor,
         step_small = torch.amax(torch.abs(delta).reshape(R, -1), 1) < 1e-7
         # converged when the cost stops moving, whether or not the step
         # was accepted
-        converged = torch.abs(current - new) < rel_tol * (current + 1e-12)
+        converged = (torch.abs(current - new)
+                     < o["tols"][1] * (current + 1e-12))
         current = torch.where(take, new, current)
         lam = torch.where(active, torch.clamp(
             torch.where(accept, lam * 0.3, lam * 5.0), 1e-9, 1e7), lam)
         iters = iters + active.to(torch.int64)
-        active = active & ~(step_small | converged)
-        if not bool(torch.any(active)):
-            break
+        active = active & ~(step_small | converged) & (iters < o["caps"][0])
+    return {"poses": poses, "current": current, "lam": lam,
+            "active": active, "iters": iters,
+            "status": _batched_status(active, iters)}
+
+
+BATCHED_GRAPHS = StepGraphs("batched_lm", {"init": _batched_init,
+                                           "step": _batched_step})
+
+
+@highest_precision
+def _batched_lm(g: PoseGraphArrays, weights: torch.Tensor,
+                max_iters: int = 50, init_lambda: float = 1e-4,
+                rel_tol: float = 1e-7, *, eager: bool = False):
+    """``solver.lm_optimize`` on each of R stacked subgraphs (dense tier,
+    ``Np <= solver._DENSE_SOLVE_MAX_NODES``) at once.
+
+    Each robot keeps its own damping, cost, accept/reject and stop, as the
+    JAX package's per-device ``while_loop`` did: a stopped robot is frozen
+    by a mask, so its poses and iteration count are those ``lm_optimize``
+    gives on that robot alone. Per iteration: one linearization over the R
+    blocks, one batched Cholesky of ``[R, 6Np, 6Np]`` (a robot whose
+    matrix is not positive definite gets a NaN step and rejects it, without
+    a host read). The iteration is a step program (:data:`BATCHED_GRAPHS`,
+    captured once per tier on CUDA) driven as ``solver.lm_optimize``'s
+    dense steps: one step in flight, one host read per step (have all
+    robots stopped?); ``eager`` launches the step unreplayed (a test's
+    comparison). Returns (poses ``[R, Np, 4, 4]``, iterations ``[R]``
+    int64 tensor).
+    """
+    R, Np = g.poses.shape[:2]
+    gf = _flatten(g)
+    tols, caps = solver._scalar_operands(g.poses.device, g.poses.dtype,
+                                         [init_lambda, rel_tol], [max_iters])
+    operands = {n: getattr(gf, n) for n in solver._GRAPH_FIELDS}
+    operands.update(weights=weights.reshape(-1), tols=tols, caps=caps)
+    with BATCHED_GRAPHS.solve(g.poses.device, operands, eager=eager,
+                              robots=R, steps=solver._LM_STEPS) as loop:
+        solver._run_steps(loop)
+        poses, iters = loop.take("poses", "iters")
     return poses.reshape(R, Np, 4, 4), iters
 
 

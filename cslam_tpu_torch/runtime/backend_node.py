@@ -188,9 +188,13 @@ class DecentralizedPGO:
 
     def warmup(self, expected_poses: int, expected_edges: int) -> None:
         """Run the GNC solver once on every padded tier up to the given
-        sizes (``backend.warmup_poses``). Eager PyTorch compiles nothing per
-        tier, so this only pays the one-time costs (CUDA context, solver
-        library handles) before the mission starts."""
+        sizes (``backend.warmup_poses``). On CUDA this captures each tier's
+        LM step programs (``pgo.solver.DENSE_GRAPHS`` / ``PCG_GRAPHS``), as
+        the JAX package compiles its solver per tier, so no solve of the
+        mission pays a capture; one that does (a tier the grid missed) is
+        captured then, counted in the programs' ``captures``. It also pays
+        the one-time costs (CUDA context, solver library handles) before
+        the mission starts."""
         for np_tier, ne_tier in self.warmup_tier_grid(expected_poses,
                                                       expected_edges):
             self.warmup_tier(np_tier, ne_tier)

@@ -30,15 +30,29 @@ it: one launch per chunk.
   what the captures reserved.
 - A capture that fails raises, naming the function and the key; nothing
   falls back to the eager call on the card.
+- Captures run in ``thread_local`` mode: only the capturing thread is
+  barred from calls a capture forbids (a synchronous copy, a pinned
+  allocation, a device synchronize). The back end may capture a PGO tier
+  in its optimization thread while the main thread's front end copies to
+  the device (``tools/multi_process_swarm.py``); in the default global
+  mode that copy fails.
 - On the CPU the function runs eagerly (the plain path); keys are recorded
   there too, so a CPU test can show that a warmup covers production's
   keys.
 
 Counters (plain integers): ``captures`` and ``replays`` count on CUDA,
 ``keys_seen`` everywhere.
+
+:class:`StepGraphs` is the sibling for a loop: the programs of one
+``lax.while_loop`` body (the PGO solver's LM and PCG steps) that share
+their loop state on the device, each captured once per key and replayed
+until a device flag, read once per block, says stop.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
+import threading
 from typing import Callable, Dict, Tuple
 
 import numpy as np
@@ -58,21 +72,55 @@ def pool_bytes(device=None) -> int:
     return _POOL_BYTES.get(index, 0)
 
 
-def host_operands(device, *values):
-    """Float32 host tensors of arrays, tensors or scalars, for a
-    :class:`TierGraphs` call on ``device``: pinned when ``device`` is CUDA
-    (the copy into the static buffers then runs behind the device's
-    queue). A tensor already on ``device``'s kind is passed through."""
+def host_operands(device, *values, dtype=torch.float32):
+    """``dtype`` host tensors of arrays, tensors or scalars, for a
+    :class:`TierGraphs` or :class:`StepGraphs` call on ``device``: pinned
+    when ``device`` is CUDA (the copy into the static buffers then runs
+    behind the device's queue). A tensor already on ``device``'s kind is
+    passed through."""
     device = torch.device(device)
     out = []
     for v in values:
         if isinstance(v, torch.Tensor) and v.device.type == device.type:
-            out.append(v.to(torch.float32))
+            out.append(v.to(dtype))
             continue
-        t = (v.detach().to("cpu", torch.float32) if isinstance(v, torch.Tensor)
-             else torch.as_tensor(np.asarray(v, np.float32)))
+        t = (v.detach().to("cpu", dtype) if isinstance(v, torch.Tensor)
+             else torch.as_tensor(np.asarray(v), dtype=dtype))
         out.append(t.pin_memory() if device.type == "cuda" else t)
     return out
+
+
+def _capture_in_pool(device, label, key, warm, body):
+    """Capture ``body()`` as a CUDA graph in ``device``'s shared pool, after
+    ``warm()`` has run ``_WARMUP_RUNS`` times on a side stream (and in
+    ``thread_local`` mode, see the module note). Returns the graph,
+    ``body``'s result and the bytes the capture reserved, which it also
+    adds to :func:`pool_bytes`. A failure raises, naming ``label`` and
+    ``key``."""
+    with torch.cuda.device(device):
+        try:
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                for _ in range(_WARMUP_RUNS):
+                    warm()
+            torch.cuda.current_stream().wait_stream(side)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved(device)
+            if device.index not in _POOLS:
+                _POOLS[device.index] = torch.cuda.graph_pool_handle()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, pool=_POOLS[device.index],
+                                  capture_error_mode="thread_local"):
+                result = body()
+            torch.cuda.synchronize()
+        except Exception as exc:
+            raise RuntimeError(f"{label}: CUDA graph capture failed for key "
+                               f"{key}: {exc}") from exc
+        grown = torch.cuda.memory_reserved(device) - reserved
+    _POOL_BYTES[device.index] = _POOL_BYTES.get(device.index, 0) + grown
+    return graph, result, grown
 
 
 class TierGraphs:
@@ -121,29 +169,171 @@ class TierGraphs:
         with torch.cuda.device(device):
             inputs = [torch.empty(a.shape, dtype=a.dtype, device=device)
                       .copy_(a) for a in args]
-            try:
-                side = torch.cuda.Stream()
-                side.wait_stream(torch.cuda.current_stream())
-                with torch.cuda.stream(side):
-                    for _ in range(_WARMUP_RUNS):
-                        self.fn(*inputs, **static)
-                torch.cuda.current_stream().wait_stream(side)
-                torch.cuda.synchronize()
-                torch.cuda.empty_cache()
-                reserved = torch.cuda.memory_reserved(device)
-                if device.index not in _POOLS:
-                    _POOLS[device.index] = torch.cuda.graph_pool_handle()
-                graph = torch.cuda.CUDAGraph()
-                with torch.cuda.graph(graph, pool=_POOLS[device.index]):
-                    outputs = self.fn(*inputs, **static)
-                torch.cuda.synchronize()
-            except Exception as exc:
-                raise RuntimeError(f"{self.name}: CUDA graph capture failed "
-                                   f"for key {key}: {exc}") from exc
-            grown = torch.cuda.memory_reserved(device) - reserved
+        graph, outputs, grown = _capture_in_pool(
+            device, self.name, key, lambda: self.fn(*inputs, **static),
+            lambda: self.fn(*inputs, **static))
         self.captures += 1
         self.pool_bytes += grown
-        _POOL_BYTES[device.index] = _POOL_BYTES.get(device.index, 0) + grown
         if isinstance(outputs, torch.Tensor):
             outputs = (outputs,)
         return graph, inputs, tuple(outputs)
+
+
+class StepGraphs:
+    """Programs of one loop that share device state, each captured once
+    per key and replayed: the counterpart of a jitted ``lax.while_loop``
+    whose body is cut into a few programs.
+
+    ``programs`` maps names to ``fn(state, operands, **static) -> dict``;
+    ``state`` and ``operands`` are dicts of tensors, and the returned dict
+    holds the state entries the program updates (every update is masked
+    on the device, so a program run after the loop's stop leaves the state
+    as it was). A solve binds its operands once::
+
+        with graphs.solve(device, operands, **static) as loop:
+            loop.run("init"); loop.run("step"); flag = loop.status()
+            ... flag.wait() ...
+            poses, = loop.take("poses")
+
+    On CUDA the state lives in static buffers between replays (nothing is
+    cloned per replay, only :meth:`_GraphLoop.take`'s outputs); the
+    operands are copied in once per solve; a program's first run under a
+    key runs it twice eagerly on a side stream, which shows the state
+    buffers it writes (allocated outside the graph pool: they live across
+    the replays of several graphs), then captures it, its updates copied
+    into those buffers, its temporaries in the one shared pool of
+    :class:`TierGraphs`. The key is
+    the operands' names, shapes and dtypes, the device and ``static``, so
+    caps and tolerances passed as tensors share one capture. A failed
+    capture raises, naming the program and the key. On the CPU, or with
+    ``eager=True`` (a test's way to run the same programs launched one by
+    one), the programs run eagerly. ``status()`` starts a copy of the
+    state's ``"status"`` tensor to pinned host memory behind the queue and
+    returns a handle whose ``wait()`` is the loop's only host read. Solves
+    of one :class:`StepGraphs` are serialized by a lock (their state
+    buffers are shared per key). Counters as :class:`TierGraphs`', plus
+    ``by_program``: captures and replays per program name."""
+
+    def __init__(self, name: str, programs: Dict[str, Callable]):
+        self.name = name
+        self.programs = programs
+        self.keys = set()
+        self.captures = 0
+        self.replays = 0
+        self.pool_bytes = 0
+        self.by_program = {n: collections.Counter() for n in programs}
+        self._loops: Dict[tuple, "_GraphLoop"] = {}
+        self._lock = threading.Lock()
+
+    @property
+    def keys_seen(self) -> int:
+        return len(self.keys)
+
+    @contextlib.contextmanager
+    def solve(self, device, operands: Dict[str, torch.Tensor],
+              eager: bool = False, **static):
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        key = (str(device),
+               tuple((n, tuple(t.shape), t.dtype)
+                     for n, t in operands.items()),
+               tuple(sorted(static.items())))
+        self.keys.add(key)
+        with self._lock:
+            if device.type != "cuda" or eager:
+                yield _EagerLoop(self, {n: t.to(device, non_blocking=True)
+                                        for n, t in operands.items()},
+                                 static)
+                return
+            loop = self._loops.get(key)
+            if loop is None:
+                loop = self._loops[key] = _GraphLoop(self, key, device,
+                                                     operands, static)
+            loop.load(operands)
+            yield loop
+
+
+class _Status:
+    """A pending host copy of a loop's status tensor."""
+
+    def __init__(self, status: torch.Tensor):
+        if status.is_cuda:
+            self._host = torch.empty(status.shape, dtype=status.dtype,
+                                     pin_memory=True)
+            self._host.copy_(status, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._host, self._event = status.clone(), None
+
+    def wait(self) -> list:
+        if self._event is not None:
+            self._event.synchronize()
+        return self._host.tolist()
+
+
+class _EagerLoop:
+    """The programs launched one by one (the plain path on the CPU)."""
+
+    def __init__(self, graphs: StepGraphs, operands, static):
+        self.graphs, self.operands, self.static = graphs, operands, static
+        self.state: Dict[str, torch.Tensor] = {}
+
+    def run(self, name: str) -> None:
+        self.state.update(self.graphs.programs[name](
+            self.state, self.operands, **self.static))
+
+    def status(self) -> _Status:
+        return _Status(self.state["status"])
+
+    def take(self, *names):
+        return tuple(self.state[n] for n in names)
+
+
+class _GraphLoop(_EagerLoop):
+    """One key's static operand and state buffers and its captured
+    programs."""
+
+    def __init__(self, graphs: StepGraphs, key, device, operands, static):
+        super().__init__(graphs, {n: torch.empty(t.shape, dtype=t.dtype,
+                                                 device=device)
+                                  for n, t in operands.items()}, static)
+        self.key, self.device = key, device
+        self._captured: Dict[str, torch.cuda.CUDAGraph] = {}
+
+    def load(self, operands) -> None:
+        for n, t in operands.items():
+            self.operands[n].copy_(t, non_blocking=True)
+
+    def run(self, name: str) -> None:
+        graph = self._captured.get(name)
+        if graph is None:
+            graph = self._captured[name] = self._capture(name)
+        graph.replay()
+        self.graphs.replays += 1
+        self.graphs.by_program[name]["replays"] += 1
+
+    def take(self, *names):
+        return tuple(self.state[n].clone() for n in names)
+
+    def _capture(self, name):
+        fn = self.graphs.programs[name]
+
+        def warm():
+            # the state entries this program writes get buffers of their
+            # own, outside the graph pool
+            for n, o in fn(self.state, self.operands, **self.static).items():
+                if n not in self.state:
+                    self.state[n] = torch.empty_like(o)
+
+        def body():
+            for n, o in fn(self.state, self.operands, **self.static).items():
+                self.state[n].copy_(o)
+
+        graph, _, grown = _capture_in_pool(
+            self.device, f"{self.graphs.name}.{name}", self.key, warm, body)
+        self.graphs.captures += 1
+        self.graphs.by_program[name]["captures"] += 1
+        self.graphs.pool_bytes += grown
+        return graph

@@ -3,9 +3,10 @@ scan, also on the scan-context bank's augmented ring keys, and K2, the tile
 scan) against their plain PyTorch versions, and the large-graph solver
 tiers (MAC's Woodbury/LOBPCG tier, PGO's PCG tier), one lidar
 verification chunk and one visual 3D-3D and one projective verification
-chunk on the card (replayed CUDA graphs) against the same on the CPU, and
-the graph cache itself (``utils.tier_graphs``). They skip on a machine
-without a GPU.
+chunk on the card (replayed CUDA graphs) against the same on the CPU, the
+graph cache itself (``utils.tier_graphs``), and the PGO solver's LM and
+PCG step programs replayed from their graphs against the same programs
+launched eagerly. They skip on a machine without a GPU.
 
 This file imports neither JAX nor the JAX package, so it also runs where
 only PyTorch is installed; there the JAX-importing ``tests/conftest.py``
@@ -292,3 +293,107 @@ def test_tier_graphs_capture_once_and_keep_earlier_outputs():
     graphs("cuda", a, scale, k=2)
     graphs("cuda", a[:2], scale, k=3)
     assert graphs.captures == 3 and graphs.keys_seen == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", ["dense", "pcg"])
+def test_graphed_lm_matches_eager_on_card(tier):
+    """``lm_optimize`` at GNC's first solve (30 iterations, ``rel_tol``
+    1e-5) replayed from the tier's CUDA graphs against the same step
+    programs launched eagerly (``eager=True``), twice: LM iterations equal,
+    CG iterations within 1% and the final cost within 1e-5 relative of
+    the eager runs', poses within 2e-3 of each (the card-against-CPU limit
+    of ``test_pcg_lm_optimize_on_card_matches_cpu``: ``index_add_`` on the
+    card sums by atomics, and on this graph eager runs alone land 1.2e-3
+    apart in two clusters, graphed runs in either). A second solve with
+    other caps, tolerances and weights captures nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (a CUDA graph has no CPU mode)")
+    import dataclasses
+
+    from chip_smoke import _two_by_288
+    from cslam_tpu_torch.pgo import solver
+    arrays = _two_by_288("cuda")
+    if tier == "dense":      # the first robot's 288 poses: a 512 tier
+        n = 288
+        keep = (arrays.edge_i < n) & (arrays.edge_j < n)
+        arrays = dataclasses.replace(
+            arrays, poses=arrays.poses[:512],
+            node_valid=(torch.arange(512, device="cuda") < n).to(
+                arrays.node_valid.dtype),
+            edge_valid=arrays.edge_valid * keep,
+            edge_i=torch.where(keep, arrays.edge_i, 0),
+            edge_j=torch.where(keep, arrays.edge_j, 0))
+    graphs = (solver.DENSE_GRAPHS if tier == "dense"
+              else solver.PCG_GRAPHS)
+    w = torch.ones(arrays.num_edges, device="cuda")
+    graphed, *eager = [solver.lm_optimize(arrays, w, max_iters=30,
+                                          rel_tol=1e-5, eager=e)
+                       for e in (False, True, True)]
+    assert (graphed.cg_iterations > 0) == (tier == "pcg")
+    for ref in eager:
+        assert graphed.iterations == ref.iterations
+        assert abs(graphed.cg_iterations - ref.cg_iterations) <= (
+            0.01 * ref.cg_iterations)
+        assert float(graphed.final_cost) == pytest.approx(
+            float(ref.final_cost), rel=1e-5)
+        assert float((graphed.poses - ref.poses).abs().max()) <= 2e-3
+    captures = graphs.captures
+    w2 = w.clone()
+    w2[:5] = 0.5
+    res = solver.lm_optimize(arrays, w2, max_iters=3, cg_iters=40,
+                             rel_tol=1e-5, cg_tol=1e-4, init_lambda=1e-3)
+    assert res.iterations <= 3 and graphs.captures == captures
+
+
+def _stagger_problem(robots=3):
+    """``tests/test_torch_distributed_pgo.py``'s three robots (noisy
+    odometry, inits off by 0.3 m per robot index, an intra loop closure
+    every 7 poses), whose local LM solves stop at different iterations."""
+    from cslam_tpu_torch.pgo.distributed import ShardedPoseGraph
+    rng = np.random.default_rng(3)
+    sig = np.array([0.01] * 3 + [0.1] * 3)
+    p = ShardedPoseGraph(robots)
+    for r in range(robots):
+        cur = np.eye(4)
+        p.add_variable(r, 0, cur)
+        for k in range(23):
+            z = np.eye(4)
+            z[0, 3] = 1.0
+            z[:3, 3] += rng.normal(scale=0.05 * (r + 1), size=3)
+            init = cur @ z
+            init[:3, 3] += rng.normal(scale=0.3 * (r + 1), size=3)
+            p.add_variable(r, k + 1, init)
+            p.add_local_between(r, k, k + 1, z, sig)
+            cur = init
+        for k in range(0, 16, 7):
+            z = np.eye(4)
+            z[0, 3] = 8.0
+            p.add_local_between(r, k, k + 8, z, sig, robust=True)
+    return p
+
+
+@pytest.mark.cuda
+def test_graphed_batched_lm_matches_eager_on_card():
+    """``distributed._batched_lm`` on :func:`_stagger_problem`, one LM
+    iteration replayed from its CUDA graphs against the same step launched
+    eagerly: poses within 2e-3, the LM's card-against-CPU limit
+    (``test_pcg_lm_optimize_on_card_matches_cpu``). The card's atomic sums
+    differ in the last bits and the dense float32 Cholesky of these weakly
+    anchored chains carries that to about 1e-4 m in one step; from the
+    second step on, an accept/reject decision taken on nearly equal costs
+    can go either way in either mode (4.8e-3 m apart after 3 steps), so
+    one step is compared."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (a CUDA graph has no CPU mode)")
+    from cslam_tpu_torch.pgo import distributed
+    from cslam_tpu_torch.utils.robot_mesh import StackedMesh
+    local, _ = _stagger_problem().to_device_arrays(StackedMesh(3, "cuda"))
+    w = torch.ones(local.edge_i.shape, device="cuda")
+    (graphed, iters), (eager, eager_iters) = [
+        distributed._batched_lm(local, w, max_iters=1, eager=e)
+        for e in (False, True)]
+    assert iters.tolist() == eager_iters.tolist() == [1] * 3
+    assert float((graphed - eager).abs().max()) <= 2e-3
+    assert float((graphed - local.poses).abs().max()) > 1e-2
+    assert distributed.BATCHED_GRAPHS.captures >= 2

@@ -105,3 +105,32 @@ def test_visual_warmup_covers_live_pairs(camera_pairs, inlier_dist,
     assert [g[1] for g in got] == [w[1] for w in want]
     for g, w in zip(got, want):
         assert abs(g[2] - w[2]) <= 1
+
+
+def test_backend_warmup_covers_a_swarms_solves():
+    """The back end's warmup (``backend.warmup_poses``, run when each
+    robot's ``DecentralizedPGO`` is built), then a 2 x 20 swarm's solves
+    (cold GNC and warm re-solves, the tiers pinned by
+    ``backend.pgo_np_floor`` / ``pgo_ne_floor`` as deployments pin them):
+    the LM step programs see no key the warmup did not, so on the card no
+    solve pays a capture."""
+    from cslam_tpu_torch.pgo import solver
+    from cslam_tpu_torch.runtime.simulator import (SwarmSimulator,
+                                                   SyntheticWorld,
+                                                   circle_trajectory)
+    world = SyntheticWorld(nb_places=40, descriptor_dim=32, seed=0)
+    trajs = [circle_trajectory(20, radius=10.0 + 0.3 * r, nb_places=40,
+                               start_angle=0.05 * r, z=0.2 * r)
+             for r in range(2)]
+    sim = SwarmSimulator(2, world, trajs, config_overrides={
+        "frontend.inter_robot_detection_period_sec": 3.0,
+        "frontend.inter_robot_loop_closure_budget": 5,
+        "backend.pose_graph_optimization_start_period_ms": 2000,
+        "backend.pgo_np_floor": 64, "backend.pgo_ne_floor": 128,
+        "backend.warmup_poses": 64, "backend.warmup_edges": 128},
+        keyframe_period=0.5, device="cpu")
+    warmed = set(solver.DENSE_GRAPHS.keys)
+    assert any(key[1][0][1] == (64, 4, 4) for key in warmed)
+    sim.run(20.0, dt=0.25)
+    assert sum(r.backend.optimization_count for r in sim.robots) >= 2
+    assert set(solver.DENSE_GRAPHS.keys) == warmed
