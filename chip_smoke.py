@@ -19,21 +19,37 @@ Builds the hand-written kernels from the sources in the checkout (one
 * phase ``swarm`` — the port's ``SwarmSimulator`` on CUDA with 4 robots x
   120 keyframes (480 poses, the largest swarm on the dense MAC and PGO
   tiers; the back end's warmup captures the PGO step programs of every
-  tier up to 480 poses, and a capture during the mission fails the run),
-  with ``pgo.optimize`` seconds, LM iterations, host reads and the step
-  programs' replays, plus a two-robot run on CUDA held against the same
-  run on the CPU (the plain versions);
+  tier up to 480 poses, ``warmup_selection_tiers`` MAC's Frank-Wolfe
+  programs of every tier up to 960 poses and 4,096 candidates, and a
+  capture during the mission fails the run), with ``pgo.optimize``
+  seconds, LM iterations, host reads and the step programs' replays,
+  MAC's spans and the loop
+  state's counters (FW iterations, evaluations, LOBPCG calls, live and
+  masked iterations, host reads per selection within their bound), plus
+  a two-robot run on CUDA held against the same run on the CPU (the
+  plain versions);
 * phase ``swarm_floored`` — the same mission with the tiers pinned as
   deployments pin them (``frontend.mac_p_floor``, ``backend.pgo_np_floor``
   and ``backend.pgo_ne_floor`` at 1024), so every selection runs MAC's
   Woodbury/LOBPCG tier and every optimization PGO's coarse-corrected PCG
   tier, with LOBPCG, LM and CG iterations, host reads (at most one per
   CG block of ``solver._CG_BLOCK`` iterations plus two per LM iteration
-  in each PCG solve) and captures (none after the warmup) counted;
+  in each PCG solve; one per FW iteration plus one per selection) and
+  captures (none after the warmup) counted; the small-eigensolver kernels
+  must run and no ``torch.linalg.eigh`` may see a CUDA tensor;
 * phase ``large_tiers`` — MAC at ``benchmarks/selection_bench.py``'s three
   tiers (5 x 100 poses / 100 candidates, 10 x 200 / 400, 10 x 500 / 1000:
   P = 512, 2048, 8192) through the port's ACM, lambda_2 of each selection
-  held against scipy, the P = 2048 selection against the same on the CPU;
+  held against scipy, the P = 2048 selection against the same on the CPU,
+  each selection again graphed and eager (the same step programs launched
+  one by one: the same edges and FW iterations) and, on the Woodbury
+  tier, with each LOBPCG stage's captured body replayed until the host
+  reads its stop flag clear (bit for bit the graphed selection, with the
+  same LOBPCG stages and iterations); the small-eigensolver
+  kernels (``csrc/small_eigh.cu``) against ``torch.linalg.eigh`` / ``svd``
+  on the Rayleigh-Ritz, SVQB and basis-extension matrices of a real P =
+  8192 evaluation and on random symmetric matrices with clustered and
+  repeated eigenvalues, with their times beside the library calls';
   GNC-TLS cold (first with the tier's captures, then again) and warm on
   ``benchmarks/graphs``' 8 x 256 and 8 x 512 graphs (both outliers
   rejected, ATE within 0.05 m of the reference's ``*_optimized.g2o``),
@@ -41,9 +57,9 @@ Builds the hand-written kernels from the sources in the checkout (one
   twice eagerly (the same step programs launched one by one) held against
   the graphed one; the PCG tier's LM solve at 4096 nodes with CG blocks
   of 16, 8, 32 and 16 iterations; LM on a 2 x 288 graph on CUDA against
-  the CPU; last, ``torch.profiler`` device times of one MAC evaluation at
-  P = 8192, one LM step, one PCG-tier LM solve and one CG block at 4096
-  nodes;
+  the CPU; last, ``torch.profiler`` device times of one MAC evaluation and
+  one graphed selection at P = 8192, one LM step, one PCG-tier LM solve
+  and one CG block at 4096 nodes;
 * phase ``distributed`` — the multi-device mode with every robot's block
   on the one card: ``mesh_banks``, ``MeshDescriptorBanks.search_all`` over
   8 robot shards at ``benchmarks/mesh_bank_bench.py``'s width (131,072 x
@@ -90,7 +106,9 @@ Builds the hand-written kernels from the sources in the checkout (one
   robots x 40 steps of the bench's mission through the lidar, detection
   and back-end nodes (at least one verified inter-robot loop, robot 0's
   optimized ATE <= odometry ATE + 0.05 m, every chunk a replay of a graph
-  the warmup captured), with its spans;
+  the warmup captured, MAC's selection programs warmed as the bench warms
+  them and none captured on the main thread after that), with its spans
+  (a prefetch thread's as ``(bg)``) and MAC's captures and replays;
 * phase ``visual`` — the visual (RGB-D / stereo) path at
   ``benchmarks/visual_e2e_scale_bench.py``'s widths: ``visual_verify``, one
   16-pair chunk at ``benchmarks/verification_bench.py``'s widths (512
@@ -105,7 +123,7 @@ Builds the hand-written kernels from the sources in the checkout (one
   ``RGBDFrontEnd`` -> ``DetectionFrontEnd`` (CosPlace, the visual bank on
   K1) -> ``DecentralizedPGO`` (the C++ feature library loaded, at least one
   verified inter-robot loop, robot 0's optimized ATE <= odometry ATE +
-  0.05 m); ``visual_stereo``, two ``StereoFrontEnd``s from
+  0.05 m, MAC as in the lidar mission); ``visual_stereo``, two ``StereoFrontEnd``s from
   ``make_map_manager`` exchanging a keyframe (the CPU's flags, within 0.12
   m of the truth), then the mission's stereo variant at 3 x 20 through the
   same node stack (the same limits);
@@ -129,7 +147,22 @@ Builds the hand-written kernels from the sources in the checkout (one
   processes on the card for 20 s over the TCP hub (every robot exits 0
   with fixed edges, an optimized result and K1 launches, and has imported
   neither ``jax`` nor ``cslam_tpu``; the transport refuses a frame that
-  holds a tensor).
+  holds a tensor);
+* phase ``mac_calls`` — MAC's calls one by one (``torch.profiler``: wall
+  and device ms, CUDA kernels, copies to the host and host syncs per
+  call): ``torch.linalg.eigh`` of the dense tier's deflated Laplacian and
+  one FW evaluation at P = 64 .. 512, one Woodbury evaluation at P =
+  1024, 2048, 8192, each with its selection's time; then one LOBPCG stage
+  as a CUDA graph while loop (``csrc/graph_while.cu``, the main path),
+  as its body replayed from the host and eagerly (the plain version) at
+  (P, E) = (1024, 1024), (1024, 4096), (8192, 1024): the while loop and
+  its body replayed until the host reads the stop flag clear stop at the
+  same iteration with Ritz values within 4 float32 eps of max |theta|
+  (the same kernels; eager's are printed); where the host's
+  time goes in a graphed selection at P = 512, 1024, 8192, and the device
+  ms and kernels of one replay of each selection program. Its first part
+  runs in an older checkout too (copy this file there and pass
+  ``--phases mac_calls``).
 
 Every kernel's launch counter is set to 0 just before each main-path run and
 read just after; a kernel that did not launch fails the run. The missions
@@ -164,18 +197,38 @@ def _card_line() -> str:
     return out.stdout.strip().splitlines()[0] if out.stdout.strip() else "?"
 
 
+def _sync() -> None:
+    """``torch.cuda.synchronize()`` after any CUDA graph capture in flight
+    (``utils.tier_graphs.synchronize``): ACM's prefetch threads capture
+    the next selection tier in the background, and a device-wide
+    synchronize during a capture fails. An older checkout has no such
+    captures."""
+    import torch
+
+    from cslam_tpu_torch.utils import tier_graphs
+    getattr(tier_graphs, "synchronize", torch.cuda.synchronize)()
+
+
+def _wait_prefetches() -> None:
+    """Wait for ACM's background prefetches of selection tiers (an older
+    checkout has none): the profiler synchronizes the whole device, which
+    fails during a capture. Called outside any selection."""
+    from cslam_tpu_torch.selection import mac
+    getattr(mac, "wait_for_prefetches", lambda: None)()
+
+
 def _time_ms(fn, iters: int, warmup: int = 2) -> float:
     import torch
     for _ in range(warmup):
         fn()
-    torch.cuda.synchronize()
+    _sync()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(iters):
         fn()
     stop.record()
-    torch.cuda.synchronize()
+    _sync()
     return start.elapsed_time(stop) / iters
 
 
@@ -195,7 +248,7 @@ def _time_cold_ms(fn, iters: int, flush, warmup: int = 2) -> float:
         fn()
         stop.record()
         pairs.append((start, stop))
-    torch.cuda.synchronize()
+    _sync()
     return sum(a.elapsed_time(b) for a, b in pairs) / iters
 
 
@@ -203,19 +256,27 @@ def _bound(flops: float, nbytes: float, dtype: str) -> dict:
     """The least time the card could take for ``flops`` on the tensor cores
     (the screen's input type) and ``nbytes`` of memory traffic, and the same
     on the FP32 cores (the rate the exact rescore runs at)."""
-    t_flops, t_bytes = flops / _PEAK_FLOPS[dtype], nbytes / _PEAK_BYTES
+    rate = _PEAK_FP32 if dtype == "fp32" else _PEAK_FLOPS[dtype]
+    t_flops, t_bytes = flops / rate, nbytes / _PEAK_BYTES
     return {"bound_ms": max(t_flops, t_bytes) * 1e3,
             "bound_by": "operations" if t_flops >= t_bytes else "bytes",
             "bound_fp32_ms": max(flops / _PEAK_FP32, t_bytes) * 1e3,
             "flops": flops, "bytes": nbytes}
 
 
+_HOST_SYNCS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+               "cudaEventSynchronize")
+
+
 def _device_profile(fn, iters: int = 20) -> dict:
     """Per call: the host wall time, the device time of every CUDA kernel
     ``fn`` launches, of the bank scans' scan kernels (``screen_kernel``,
-    ``small_kernel``) and merge kernel (``torch.profiler``), the number of
+    ``small_kernel``), merge kernel and cuBLAS triangular solves
+    (``trsm``) (``torch.profiler``), the number of
     CUDA kernels and of ``cudaGraphLaunch`` calls (the CUDA-API count),
-    and the device's idle share of the wall; device times are
+    the copies to the host and host synchronizations (each a host read),
+    the five kernels that take most device time (name, calls, ms), and
+    the device's idle share of the wall; device times are
     ``None`` where the profiler saw none. Run it after every timing: its
     tracing may slow what runs after it."""
     import warnings
@@ -224,7 +285,7 @@ def _device_profile(fn, iters: int = 20) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
-    torch.cuda.synchronize()
+    _sync()
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         with profile(activities=[ProfilerActivity.CPU,
@@ -232,12 +293,16 @@ def _device_profile(fn, iters: int = 20) -> dict:
             t0 = time.perf_counter()
             for _ in range(iters):
                 fn()
-            torch.cuda.synchronize()
+            _sync()
             wall_ms = (time.perf_counter() - t0) * 1e3 / iters
         averages = prof.key_averages()
         kernels = [e for e in averages if e.device_type == DeviceType.CUDA]
         graph_launches = sum(e.count for e in averages
                              if e.key == "cudaGraphLaunch") / iters
+        reads = {"dtoh_copies_per_call": sum(
+            e.count for e in kernels if "DtoH" in e.key) / iters,
+                 "host_syncs_per_call": sum(
+            e.count for e in averages if e.key in _HOST_SYNCS) / iters}
 
     def ms(pick):
         return sum(e.device_time_total for e in kernels
@@ -246,12 +311,17 @@ def _device_profile(fn, iters: int = 20) -> dict:
     if device_ms <= 0:
         return {"wall_ms": wall_ms, "device_ms": None, "idle_share": None,
                 "kernels_per_call": None,
-                "graph_launches_per_call": graph_launches}
+                "graph_launches_per_call": graph_launches, **reads}
     return {"wall_ms": wall_ms, "device_ms": device_ms,
-            "graph_launches_per_call": graph_launches,
+            "graph_launches_per_call": graph_launches, **reads,
+            "top_kernels": sorted(
+                ([e.key[:60], e.count / iters,
+                  e.device_time_total / 1e3 / iters] for e in kernels),
+                key=lambda r: -r[2])[:5],
             "scan_kernel_ms": ms(lambda key: "screen_kernel" in key
                                  or "small_kernel" in key),
             "merge_kernel_ms": ms(lambda key: "merge_kernel" in key),
+            "trsm_kernel_ms": ms(lambda key: "trsm" in key),
             "kernels_per_call": sum(e.count for e in kernels) / iters,
             "idle_share": max(0.0, 1.0 - device_ms / wall_ms)}
 
@@ -261,7 +331,7 @@ def _compare(name, got, ref, failures, tol=0.0) -> float:
     plain version: 0, bit for bit); -inf where -inf."""
     import torch
     (gv, gi), (rv, ri) = got, ref
-    torch.cuda.synchronize()
+    _sync()
     if not torch.equal(gi.long(), ri.long()):
         bad = (gi.long() != ri.long()).nonzero()[:5].tolist()
         failures.append(f"{name}: indices differ at {bad}")
@@ -416,10 +486,10 @@ def phase_bank_scan(results, failures):
         bank = DescriptorBank(dim=D, capacity=N, dtype=dtype, device="cuda")
         bank.add_items(rows, list(range(n)))
         bank._sync_device()
-        torch.cuda.synchronize()
+        _sync()
         nns.launches = 0
         sims, idx = bank.search_batch_begin(queries, k)   # the main path
-        torch.cuda.synchronize()
+        _sync()
         launches = nns.launches
         print(f"  main path ({dtype} bank {N}x{D}, n={n}, B={B}, k={k}): "
               f"{launches} kernel launch(es)")
@@ -544,7 +614,7 @@ def phase_frontend(results, failures):
         return model.compute_embedding_finish(
             model.compute_embedding_begin(frames[i]))
     embed_one(0)
-    torch.cuda.synchronize()
+    _sync()
     t0 = time.perf_counter()
     one = [embed_one(i) for i in range(len(frames))]
     out["embed_ms_per_image_b1"] = (time.perf_counter() - t0) * 1e3 / 32
@@ -599,10 +669,10 @@ def phase_frontend(results, failures):
     steps = {}
     for B in (1, 32):
         images = preprocess.preprocess(frames[:B], 376, torch.device("cuda"))
-        torch.cuda.synchronize()
+        _sync()
         nns.tile_scan_launches = nns.launches = 0
         desc, sims, idx = frontend_step(net, images, bank, inv, n, 8)
-        torch.cuda.synchronize()
+        _sync()
         got_launches = nns.tile_scan_launches
         launches["tile_scan"] += got_launches
         launches["bank_scan"] += nns.launches
@@ -622,7 +692,7 @@ def phase_frontend(results, failures):
         t0 = time.perf_counter()
         for _ in range(10):
             frontend_step(net, images, bank, inv, n, 8)
-        torch.cuda.synchronize()
+        _sync()
         out[f"step_b{B}_ms"] = (time.perf_counter() - t0) * 1e3 / 10
         out[f"search_b{B}_ms"] = _time_ms(
             lambda: nns.cosine_topk_fused(bank, inv, n, desc, 8), 20)
@@ -665,11 +735,14 @@ def phase_frontend(results, failures):
 
 
 def _solver_graphs():
-    """The PGO solver's step-program sets (``utils.tier_graphs.
-    StepGraphs``): the dense LM, the PCG-tier LM, the batched LM."""
+    """The solvers' step-program sets (``utils.tier_graphs.StepGraphs``):
+    the dense LM, the PCG-tier LM, the batched LM, MAC's dense and
+    Woodbury Frank-Wolfe loops."""
     from cslam_tpu_torch.pgo import distributed, solver
+    from cslam_tpu_torch.selection import mac
     return (solver.DENSE_GRAPHS, solver.PCG_GRAPHS,
-            distributed.BATCHED_GRAPHS)
+            distributed.BATCHED_GRAPHS, mac.DENSE_FW_GRAPHS,
+            mac.WOODBURY_FW_GRAPHS)
 
 
 def _solver_graph_counts():
@@ -694,8 +767,10 @@ def _solver_graph_delta(before):
 
 
 class _Counters:
-    """Counts, while it is entered, what the solvers do: LOBPCG calls and
-    iterations, chain + low-rank evaluations, LM solves with their LM and
+    """Counts, while it is entered, what the solvers do: MAC selections
+    with their FW iterations, evaluations, LOBPCG calls, live and masked
+    iterations and host reads (the loop state's own counters,
+    ``MAC.last_loop``), LM solves with their LM and
     CG iterations (the solver's own device counters, returned with each
     result; under a CUDA graph the matvec runs only at capture) and the
     padded node count of each, PCG-tier solves with the host reads of
@@ -708,9 +783,12 @@ class _Counters:
     def __enter__(self):
         import torch
 
-        from cslam_tpu_torch.ops import fiedler
         from cslam_tpu_torch.pgo import solver
+        from cslam_tpu_torch.selection import mac
         self.lobpcg_calls = self.lobpcg_iters = self.evaluations = 0
+        self.lobpcg_masked = self.fw_iters = self.mac_host_reads = 0
+        #: (tier, FW iterations, host reads) of each MAC selection
+        self.selections = []
         self.lm_calls = self.lm_iters = self.pcg_solves = self.cg_iters = 0
         self.host_reads = 0
         self.lm_nodes = []
@@ -729,18 +807,19 @@ class _Counters:
             self._saved.append((owner, name, orig))
             setattr(owner, name, make(orig))
 
-        def lobpcg(orig):
-            def run(*args, **kwargs):
-                theta, V, iters = orig(*args, **kwargs)
-                self.lobpcg_calls += 1
-                self.lobpcg_iters += iters
-                return theta, V, iters
-            return run
-
-        def evaluation(orig):
-            def run(*args, **kwargs):
-                self.evaluations += 1
-                return orig(*args, **kwargs)
+        def selection(orig):
+            def run(m, *args, **kwargs):
+                out = orig(m, *args, **kwargs)
+                loop = m.last_loop
+                self.lobpcg_calls += loop["lobpcg_calls"]
+                self.lobpcg_iters += loop["lobpcg_iters"]
+                self.lobpcg_masked += loop["lobpcg_masked"]
+                self.evaluations += loop["evaluations"]
+                self.fw_iters += loop["it"]
+                self.mac_host_reads += loop["host_reads"]
+                self.selections.append(("dense" if m._dense else "woodbury",
+                                        loop["it"], loop["host_reads"]))
+                return out
             return run
 
         def lm(orig):
@@ -776,8 +855,7 @@ class _Counters:
                 return orig(*args, **kwargs)
             return run
 
-        patch(fiedler, "lobpcg_standard", lobpcg)
-        patch(fiedler, "fiedler_pair_chain_lowrank", evaluation)
+        patch(mac.MAC, "fw_subset_dispatch", selection)
         patch(solver, "lm_optimize", lm)
         for name in ("__bool__", "__float__", "__int__", "item", "tolist",
                      "cpu"):
@@ -800,9 +878,25 @@ class _Counters:
         return [(reads, cg / K + 2 * it) for reads, it, cg in self.pcg_reads
                 if reads > cg / K + 2 * it]
 
+    def mac_read_excess(self) -> list:
+        """MAC selections whose host reads exceed the stated bound: one
+        status read per FW iteration plus the last (Woodbury tier); on the
+        dense tier also one eager eigensolve per evaluation (two per FW
+        iteration and the initial rounding): (tier, reads, bound)."""
+        out = []
+        for tier, it, reads in self.selections:
+            bound = it + 1 if tier == "woodbury" else 3 * it + 1
+            if reads > bound:
+                out.append((tier, reads, bound))
+        return out
+
     def summary(self) -> dict:
-        out = {"lobpcg_calls": self.lobpcg_calls,
+        out = {"mac_selections": len(self.selections),
+               "fw_iters": self.fw_iters,
+               "mac_host_reads": self.mac_host_reads,
+               "lobpcg_calls": self.lobpcg_calls,
                "lobpcg_iters": self.lobpcg_iters,
+               "lobpcg_masked": self.lobpcg_masked,
                "evaluations": self.evaluations,
                "lm_calls": self.lm_calls, "lm_iters": self.lm_iters,
                "pcg_solves": self.pcg_solves, "cg_iters": self.cg_iters,
@@ -850,7 +944,8 @@ def _recorded_selection(acm, robots):
     dispatch, finish = acm.run_mac_solver_dispatch, acm.run_mac_solver_finish
 
     def record_dispatch(fixed, cands, *args, **kwargs):
-        seen.update(fixed=list(fixed), cands=list(cands))
+        seen.update(fixed=list(fixed), cands=list(cands), w_init=args[0],
+                    k=args[1])
         seen["mac"], pending = dispatch(fixed, cands, *args, **kwargs)
         return seen["mac"], pending
 
@@ -864,6 +959,521 @@ def _recorded_selection(acm, robots):
     finally:
         del acm.run_mac_solver_dispatch, acm.run_mac_solver_finish
     return sel, seen
+
+
+class _HostDrivenStages:
+    """While entered, each LOBPCG stage of a graphed selection runs its
+    captured body replayed from the host until the host reads its stop
+    flag clear (``StepGraphs.run_while``'s plain version): the same
+    graphs and kernels as the WHILE node, so the results must agree bit
+    for bit."""
+
+    def __enter__(self):
+        from cslam_tpu_torch.utils import tier_graphs
+        self._owner = tier_graphs._GraphLoop
+        self._orig = self._owner.run_while
+
+        def host_driven(loop, name, flag):
+            while bool(loop.state[flag]):
+                loop.run(name)
+        self._owner.run_while = host_driven
+        return self
+
+    def __exit__(self, *exc):
+        self._owner.run_while = self._orig
+
+
+def _mac_graphed_vs_eager(mac, seen, max_iters, failures, tag):
+    """The recorded round's selection again three ways: replayed from its
+    captured programs (each LOBPCG stage a WHILE node), the same with each
+    stage's body replayed from the host until it reads the stop flag
+    clear (:class:`_HostDrivenStages`), and launched eagerly (the same
+    programs one by one). Limits: graphed and host-driven stages pick the
+    same edges with the same relaxed iterate and dual bound, bit for bit,
+    and the same FW iterations, LOBPCG stages and iterations; graphed and
+    eager the same edges and FW iterations (eager's kernels differ from
+    the captured ones, so LOBPCG's own threshold decisions, its
+    convergence test and the residual gate, may fall otherwise: its
+    counts are printed). Host reads within their bound; times of each."""
+    import contextlib
+
+    import numpy as np
+    out = {}
+    runs = [("graphed", False, contextlib.nullcontext)]
+    if not mac._dense:
+        runs.append(("host_driven", False, _HostDrivenStages))
+    runs.append(("eager", True, contextlib.nullcontext))
+    for label, eager, ctx in runs:
+        _sync()
+        t0 = time.perf_counter()
+        with ctx():
+            sel, w, dual = mac.fw_subset(seen["w_init"], seen["k"],
+                                         max_iters=max_iters, eager=eager)
+        _sync()
+        out[label] = (sel, w, dual, dict(mac.last_loop),
+                      (time.perf_counter() - t0) * 1e3)
+    g, e = out["graphed"], out["eager"]
+    counts = ("it", "lobpcg_calls", "lobpcg_iters", "lobpcg_masked",
+              "evaluations")
+    rec = {"same_edges": bool(np.array_equal(g[0], e[0])),
+           "fw_iters": [g[3]["it"], e[3]["it"]],
+           "lobpcg_calls": [g[3]["lobpcg_calls"], e[3]["lobpcg_calls"]],
+           "lobpcg_iters": [g[3]["lobpcg_iters"], e[3]["lobpcg_iters"]],
+           "max_abs_w_diff": float(np.abs(g[1] - e[1]).max()),
+           "dual_rel_diff": abs(g[2] / e[2] - 1.0) if e[2] else None,
+           "graphed_ms": g[4], "eager_ms": e[4], "loop": g[3]}
+    bound = (g[3]["it"] + 1 if not mac._dense else 3 * g[3]["it"] + 1)
+    rec["host_read_bound"] = bound
+    if not rec["same_edges"] or g[3]["it"] != e[3]["it"]:
+        failures.append(f"{tag}: graphed and eager selections differ "
+                        f"(edges equal {rec['same_edges']}, FW iterations "
+                        f"{rec['fw_iters']})")
+    if "host_driven" in out:
+        h = out["host_driven"]
+        rec["host_driven"] = {
+            "same_bits": bool(np.array_equal(g[0], h[0])
+                              and np.array_equal(g[1], h[1])
+                              and g[2] == h[2]),
+            **{k: h[3][k] for k in counts}, "ms": h[4]}
+        if not rec["host_driven"]["same_bits"] or any(
+                g[3][k] != h[3][k] for k in counts):
+            failures.append(f"{tag}: LOBPCG stages as while loops and "
+                            f"driven from the host differ: "
+                            f"{ {k: g[3][k] for k in counts} } vs "
+                            f"{rec['host_driven']}")
+    if g[3]["host_reads"] > bound:
+        failures.append(f"{tag}: {g[3]['host_reads']} host reads in a "
+                        f"selection, bound {bound}")
+    return rec
+
+
+def _symmetric_cases(rng):
+    """Random symmetric float32 matrices, n = 4 and 12 (LOBPCG's SVQB and
+    Rayleigh-Ritz sizes at block 4) and 16, with spread, clustered and
+    repeated eigenvalues and a wide range."""
+    import numpy as np
+    out = []
+    for n in (4, 12, 16):
+        Q, _ = np.linalg.qr(rng.standard_normal((n, n)))
+        for lam in (rng.standard_normal(n) * 10.0,
+                    1.0 + 1e-4 * rng.standard_normal(n),
+                    np.repeat([3.0, -1.0], (n + 1) // 2)[:n],
+                    np.logspace(-6, 5, n)):
+            out.append(((Q * lam) @ Q.T).astype(np.float32))
+    return out
+
+
+#: the small eigensolver's limits against ``torch.linalg.eigh`` on the card:
+#: eigenvalues within this many float32 eps of max |lambda| (the plain
+#: version's own error is a few eps |A|, the kernel's float64 Jacobi
+#: rounds once), eigenvectors |<v, v_plain>| >= 1 - _EIGVEC_TOL where the
+#: gap to the neighbours is at least _EIGVEC_GAP max |lambda|
+_EIGVAL_EPS = 16
+_EIGVEC_TOL = 1e-4
+_EIGVEC_GAP = 1e-3
+
+
+def _small_linalg_checks(mac, rounded, failures):
+    """The small-eigensolver kernels against their plain versions on the
+    card: on the Rayleigh-Ritz (12 x 12) and SVQB (4 x 4) matrices and the
+    basis-extension blocks (4 x 4 SVD) of one real Woodbury evaluation of
+    ``mac`` (recorded from its eager run), and on random symmetric
+    matrices with clustered and repeated eigenvalues; then their times,
+    the plain versions' and the library calls' (``torch.linalg.eigh`` /
+    ``svd``), CUDA events, at batch 1."""
+    import numpy as np
+    import torch
+
+    from cslam_tpu_torch.ops import small_linalg as sl
+    eigh_in, svd_in = [], []
+    eigh0, svd0 = sl.eigh_descending, sl.svd
+
+    def rec_eigh(A):
+        eigh_in.append(A.detach().clone())
+        return eigh0(A)
+
+    def rec_svd(A):
+        svd_in.append(A.detach().clone())
+        return svd0(A)
+    sl.eigh_descending, sl.svd = rec_eigh, rec_svd
+    try:
+        mac.evaluate_objective(rounded)
+    finally:
+        sl.eigh_descending, sl.svd = eigh0, svd0
+    rng = np.random.default_rng(11)
+    cases = {"rayleigh_ritz": [a for a in eigh_in if a.shape[-1] == 12][:64],
+             "svqb": [a for a in eigh_in if a.shape[-1] == 4][:64],
+             "random": [torch.from_numpy(a).cuda()
+                        for a in _symmetric_cases(rng)]}
+    eps = float(torch.finfo(torch.float32).eps)
+    out = {}
+    for name, mats in cases.items():
+        val_err = worst_val = 0.0
+        vec_min, n_vec = 1.0, 0
+        for A in mats:
+            w, V = sl.eigh_descending(A)
+            wr, Vr = sl.eigh_descending_ref(A)
+            scale = max(float(wr.abs().max()), 1e-30)
+            err = float((w - wr).abs().max())
+            worst_val = max(worst_val, err / (eps * scale))
+            val_err = max(val_err, err)
+            n = A.shape[-1]
+            for j in range(n):
+                gaps = [abs(float(wr[j] - wr[i])) for i in (j - 1, j + 1)
+                        if 0 <= i < n]
+                if all(gp >= _EIGVEC_GAP * scale for gp in gaps):
+                    vec_min = min(vec_min, abs(float(V[:, j] @ Vr[:, j])))
+                    n_vec += 1
+        out[name] = {"matrices": len(mats), "max_abs_err": val_err,
+                     "max_err_in_eps_of_max_lambda": worst_val,
+                     "min_vector_overlap": vec_min, "vectors_held": n_vec}
+        if worst_val > _EIGVAL_EPS or vec_min < 1.0 - _EIGVEC_TOL:
+            failures.append(f"small eigh on {name}: {out[name]}")
+    svd_err = svd_rel = polar_err = 0.0
+    svd_cases = svd_in[:64] + [torch.from_numpy(
+        rng.standard_normal((4, 4)).astype(np.float32)).cuda()
+        for _ in range(8)]
+    for A in svd_cases:
+        U, S, Vh = sl.svd(A)
+        Ur, Sr, Vhr = sl.svd_ref(A)
+        err = float((S - Sr).abs().max())
+        svd_err = max(svd_err, err)
+        svd_rel = max(svd_rel, err / (eps * max(float(Sr.max()), 1e-30)))
+        if float(Sr.min()) > 1e-3 * float(Sr.max()):
+            polar_err = max(polar_err,
+                            float((U @ Vh - Ur @ Vhr).abs().max()))
+    out["svd"] = {"matrices": len(svd_cases), "max_abs_err": svd_err,
+                  "max_err_in_eps_of_max_sigma": svd_rel,
+                  "max_abs_polar_err": polar_err}
+    # limits: singular values as the eigenvalues; the polar factor U Vh
+    # (what the basis extension uses) within 1e-4 where the block is
+    # well conditioned
+    if svd_rel > _EIGVAL_EPS or polar_err > 1e-4:
+        failures.append(f"small svd: {out['svd']}")
+    A12 = (cases["rayleigh_ritz"] or cases["random"])[0]
+    A4 = (cases["svqb"] or cases["random"])[0]
+    B4 = svd_cases[0]
+    times = {}
+    for label, fn in (
+            ("eigh12", lambda: sl.eigh_descending(A12)),
+            ("eigh12_plain", lambda: sl.eigh_descending_ref(A12)),
+            ("eigh12_library", lambda: torch.linalg.eigh(A12)),
+            ("eigh4", lambda: sl.eigh_descending(A4)),
+            ("eigh4_library", lambda: torch.linalg.eigh(A4)),
+            ("svd4", lambda: sl.svd(B4)),
+            ("svd4_plain", lambda: sl.svd_ref(B4)),
+            ("svd4_library", lambda: torch.linalg.svd(B4))):
+        times[label] = _time_ms(fn, 200)
+    out["times_ms"] = times
+    # bytes: the matrix read once, the outputs written once; operations:
+    # 9 n^3, the usual count of a symmetric eigendecomposition with its
+    # vectors (an SVD: 14 n^3 at this size), at the FP32 rate
+    out["eigh12_bound"] = _bound(9 * 12 ** 3, 4 * (2 * 144 + 12), "fp32")
+    out["svd4_bound"] = _bound(14 * 4 ** 3, 4 * (3 * 16 + 4), "fp32")
+    print("  small linalg " + json.dumps(out))
+    return out
+
+
+def _lobpcg_stage_times(mac, failures, reps=5):
+    """One LOBPCG stage of a Woodbury evaluation of ``mac`` (the first,
+    from the start block, at w = 0.3) four ways: as one CUDA graph while
+    loop (``StepGraphs.run_while``, the main path); its captured body
+    replayed from the host until the host reads the stop flag clear (the
+    while loop's plain version: the same graph, one read per iteration);
+    the body replayed the known number of times with no read; and eagerly
+    (the programs launched one by one). CUDA-event ms, iterations, the
+    Ritz values' differences, the bound of the stage's bytes, and last the
+    device profile of the setup and the body replayed, with its triangular
+    solves' share (cuBLAS ``trsm`` kernels). Limits: the while loop and its plain
+    version stop at the same iteration with Ritz values within 4 float32
+    eps of max |theta| (the same kernels: they should agree bit for bit).
+    Eager's kernels differ, so its iterations and Ritz values are printed,
+    not held."""
+    import numpy as np
+    import torch
+
+    from cslam_tpu_torch.selection import mac as mac_mod
+    w0 = np.zeros(mac._E, np.float32)
+    w0[:mac._m] = 0.3
+    ops = mac._operands(w0, 5, 20, 1e-8)
+    res = {}
+
+    def timed(loop, fn):
+        times = []
+        for _ in range(reps):
+            loop.run("setup")
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            stop.record()
+            _sync()
+            times.append(start.elapsed_time(stop))
+        return float(np.median(times))
+
+    def result(loop, ms):
+        return ms, loop.take("ltheta")[0].clone(), int(loop.take("li")[0])
+    static = mac._woodbury_static()
+    with mac_mod.WOODBURY_FW_GRAPHS.solve("cuda", ops, **static) as loop:
+        loop.run("init")
+        # the while loop first: it captures the body with its cudaGraph_t
+        res["while"] = result(loop, timed(loop, lambda: loop.run_while(
+            "lobpcg", "lactive")))
+
+        def host_driven():
+            while bool(loop.state["lactive"]):
+                loop.run("lobpcg")
+        res["host"] = result(loop, timed(loop, host_driven))
+        iters = res["while"][2]
+
+        def replays():
+            for _ in range(iters):
+                loop.run("lobpcg")
+        replayed_ms = timed(loop, replays)
+
+        def stage():
+            # the body replayed: the profiler does not see the kernels
+            # inside a WHILE node's body
+            loop.run("setup")
+            replays()
+        profile = _device_profile(stage, 3)
+    with mac_mod.WOODBURY_FW_GRAPHS.solve("cuda", ops, eager=True,
+                                          **static) as loop:
+        loop.run("init")
+        res["eager"] = result(loop, timed(loop, lambda: loop.run_while(
+            "lobpcg", "lactive")))
+    P, M1 = mac._P, mac._pre["U"].shape[1]
+    eps = float(torch.finfo(torch.float32).eps)
+    theta = res["while"][1]
+    scale = eps * max(float(theta.abs().max()), 1e-30)
+    err = float((theta - res["host"][1]).abs().max())
+    err_eager = float((theta - res["eager"][1]).abs().max())
+    # each iteration applies B^-1 twice: Tinv, U, Y and the factor read
+    per_iter = 2 * 4 * (P * P + 2 * P * M1 + M1 * M1)
+    rec = {"P": P, "E": mac._E, "M1": M1, "ms": res["while"][0],
+           "plain_ms": res["host"][0], "body_replayed_ms": replayed_ms,
+           "eager_ms": res["eager"][0],
+           "iterations": [res["while"][2], res["host"][2]],
+           "max_abs_err": err, "max_err_in_eps_of_max_theta": err / scale,
+           "eager_iterations": res["eager"][2],
+           "eager_max_abs_err": err_eager,
+           "eager_err_in_eps_of_max_theta": err_eager / scale,
+           **_bound(0.0, per_iter * res["while"][2], "fp32"),
+           "profile": profile}
+    print("  LOBPCG stage while loop " + json.dumps(rec))
+    tag = f"LOBPCG stage at (P, E) = ({P}, {mac._E})"
+    if rec["iterations"][0] != rec["iterations"][1]:
+        failures.append(f"{tag}: while loop and host-driven iterations "
+                        f"{rec['iterations']}")
+    if not rec["max_err_in_eps_of_max_theta"] <= 4:
+        failures.append(f"{tag}: Ritz values of the while loop and the "
+                        f"host-driven stage {err} apart, "
+                        f"{rec['max_err_in_eps_of_max_theta']:.1f} eps of "
+                        f"max |theta| (limit 4)")
+    return rec
+
+
+def _wall_ms(fn, iters: int = 10) -> float:
+    """Host wall ms per call of ``fn`` (after one warm call), the device
+    drained before and after."""
+    import torch
+    fn()
+    _sync()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    _sync()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def _call_mac(P, E, rng):
+    """A MAC at pose tier ``P`` (``frontend.mac_p_floor`` = P, the other
+    keywords config defaults) over a 4-robot graph of 3P/4 poses (chains,
+    a loop between consecutive robots' last poses, P/8 random loops) with
+    ``E`` random candidates. Built only through the MAC surface that every
+    checkout since the Woodbury tier has, so that ``--phases mac_calls``
+    measures an older checkout too."""
+    from cslam_tpu_torch.selection.mac import MAC, mac_kwargs_from_params
+    from cslam_tpu_torch.types import Edge
+    per = P * 3 // 16
+    n = 4 * per
+
+    def pairs(count):
+        out = []
+        while len(out) < count:
+            i, j = (int(x) for x in rng.integers(0, n, 2))
+            if abs(i - j) > 1:
+                out.append((i, j))
+        return out
+    fixed = [Edge(r * per + i, r * per + i + 1, 1.0)
+             for r in range(4) for i in range(per - 1)]
+    fixed += [Edge(r * per + per - 1, (r + 1) * per + per - 1, 0.8)
+              for r in range(3)]
+    fixed += [Edge(i, j, float(rng.uniform(0.5, 1.0)))
+              for i, j in pairs(P // 8)]
+    cands = [Edge(i, j, float(rng.uniform(0.1, 1.0))) for i, j in pairs(E)]
+    return MAC(fixed, cands, n, device="cuda",
+               **mac_kwargs_from_params({"frontend.mac_p_floor": P}))
+
+
+def _call_record(fn, iters=10):
+    """Wall ms per call, then device ms, kernels, host reads and top
+    kernels per call (``torch.profiler``)."""
+    rec = {"wall_ms": _wall_ms(fn, iters)}
+    prof = _device_profile(fn, iters)
+    rec.update({k: prof.get(k) for k in (
+        "device_ms", "kernels_per_call", "dtoh_copies_per_call",
+        "host_syncs_per_call", "top_kernels")})
+    return rec
+
+
+def _selection_ms(mac, repeats=3) -> dict:
+    import numpy as np
+    w0 = np.zeros(mac._m)
+    mac.fw_subset(w0, 5, max_iters=20)
+    times = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        mac.fw_subset(w0, 5, max_iters=20)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return {"selection_ms": times, "fw_iters": mac.last_fw_iters}
+
+
+def _selection_host_split(mac) -> dict:
+    """Where the host's time goes in one graphed selection of ``mac`` (20
+    FW iterations at most, budget 5): program replays, while-loop
+    launches, status waits (the reads) and eager eigensolves, beside the
+    wall."""
+    import numpy as np
+    import torch
+
+    from cslam_tpu_torch.utils import tier_graphs
+    w0 = np.zeros(mac._m)
+    mac.fw_subset(w0, 5, max_iters=20)
+    _sync()
+    spent = {"run": 0.0, "run_while": 0.0, "wait": 0.0, "eigh": 0.0}
+    saved = []
+    for owner, name, key in ((tier_graphs._GraphLoop, "run", "run"),
+                             (tier_graphs._GraphLoop, "run_while",
+                              "run_while"),
+                             (tier_graphs._Status, "wait", "wait"),
+                             (torch.linalg, "eigh", "eigh")):
+        orig = getattr(owner, name)
+        saved.append((owner, name, orig))
+
+        def timed(*args, _orig=orig, _key=key, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return _orig(*args, **kwargs)
+            finally:
+                spent[_key] += time.perf_counter() - t0
+        setattr(owner, name, timed)
+    try:
+        t0 = time.perf_counter()
+        mac.fw_subset(w0, 5, max_iters=20)
+        _sync()
+        wall = time.perf_counter() - t0
+    finally:
+        for owner, name, orig in reversed(saved):
+            setattr(owner, name, orig)
+    return {"P": mac._P, "E": mac._E, "wall_ms": wall * 1e3,
+            **{f"{k}_ms": v * 1e3 for k, v in spent.items()},
+            "loop": dict(mac.last_loop)}
+
+
+def _program_profiles(mac) -> dict:
+    """Device ms and CUDA kernels of one replay of each Frank-Wolfe
+    program of ``mac``'s tier (captured by a selection first)."""
+    import numpy as np
+
+    from cslam_tpu_torch.selection import mac as mac_mod
+    mac.fw_subset(np.zeros(mac._m), 5, max_iters=20)
+    w0 = np.zeros(mac._E, np.float32)
+    w0[:mac._m] = 0.3
+    ops = mac._operands(w0, 5, 20, 1e-8)
+    out = {"P": mac._P, "E": mac._E}
+    if mac._dense:
+        graphs, static = mac_mod.DENSE_FW_GRAPHS, {
+            "best_rounding": mac._best_rounding}
+        names = ("pre", "pre_round", "post", "post_round")
+    else:
+        graphs, static = mac_mod.WOODBURY_FW_GRAPHS, mac._woodbury_static()
+        names = ("setup", "gate", "finish")
+    with graphs.solve("cuda", ops, **static) as loop:
+        loop.run("init")
+        if mac._dense:                   # the state the programs read
+            loop.run("pre")
+            mac_mod._dense_eigh(loop)
+        else:
+            loop.run("setup")
+            loop.run_while("lobpcg", "lactive")
+        for name in names:
+            prof = _device_profile(lambda: loop.run(name), 5)
+            out[name] = {k: prof.get(k)
+                         for k in ("device_ms", "kernels_per_call")}
+    return out
+
+
+def phase_mac_calls(results, failures):
+    """MAC's calls one by one on the card, measured as ROADMAP item 22
+    asked before its MAC part: wall ms, device ms, CUDA kernels, copies to
+    the host and host synchronizations per call (``torch.profiler``) of
+    one ``torch.linalg.eigh`` of the padded, deflated Laplacian that the
+    dense tier factors (P = 64 .. 512), one FW evaluation
+    (``MAC.evaluate_objective``) on the dense tier (64 .. 512) and on the
+    Woodbury tier (1024, 2048, 8192), each with its whole selection's
+    time. Where the FW loop runs as step programs, also one LOBPCG stage
+    as a while loop, as its body replayed and eagerly at (P, E) = (1024,
+    1024), (1024, 4096), (8192, 1024) (:func:`_lobpcg_stage_times`, with
+    its limits), where the host's time goes in one graphed selection at P
+    = 512, 1024, 8192, and the device ms and kernels of one replay of each
+    program there. Uses only what an older checkout's MAC has, so that the
+    phase measures the checkout it is copied into."""
+    import numpy as np
+    import torch
+
+    from cslam_tpu_torch.ops import fiedler as fd
+    from cslam_tpu_torch.ops import highest_precision
+    from cslam_tpu_torch.selection import mac as mac_mod
+    rng = np.random.default_rng(0)
+    out = results["mac_calls"] = {"eigh": [], "dense_eval": [],
+                                  "woodbury_eval": []}
+
+    def emit(kind, rec):
+        out[kind].append(rec)
+        print(f"  mac_calls {kind} " + json.dumps(rec))
+    for P in (64, 128, 256, 512):
+        mac = _call_mac(P, 1000, rng)
+        w = torch.full((mac._E,), 0.3, device="cuda")
+        L = mac._L_fixed + fd.laplacian_from_edges(mac._ci, mac._cj,
+                                                   w * mac._cw, P)
+        p = torch.clamp(torch.sum(mac._active), min=1.0)
+        sigma = 2.0 * torch.max(torch.diagonal(L)) + 1.0
+        u = mac._active / torch.sqrt(p)
+        B = L + sigma * torch.diag(1.0 - mac._active) + sigma * torch.outer(
+            u, u)
+        B = 0.5 * (B + B.T)
+        emit("eigh", {"P": P, **_call_record(lambda: torch.linalg.eigh(B))})
+    for kind, tiers in (("dense_eval", (64, 128, 256, 512)),
+                        ("woodbury_eval", (1024, 2048, 8192))):
+        for P in tiers:
+            mac = _call_mac(P, 1000, rng)
+            w = np.full(mac._m, 0.3)
+            rec = {"P": P, **_call_record(highest_precision(
+                lambda: mac.evaluate_objective(w)), 5)}
+            rec.update(_selection_ms(mac))
+            emit(kind, rec)
+    if not hasattr(mac_mod, "WOODBURY_FW_GRAPHS"):
+        return                           # a checkout before the step programs
+    out["stages"] = [_lobpcg_stage_times(_call_mac(P, E, rng), failures)
+                     for P, E in ((1024, 1024), (1024, 4096), (8192, 1024))]
+    out["host_split"], out["programs"] = [], []
+    for P in (512, 1024, 8192):
+        mac = _call_mac(P, 1000, rng)
+        out["host_split"].append(_selection_host_split(mac))
+        out["programs"].append(_program_profiles(mac))
+    print("  mac_calls host_split " + json.dumps(out["host_split"]))
+    print("  mac_calls programs " + json.dumps(out["programs"]))
 
 
 def _scipy_lambda2(n, edges):
@@ -899,6 +1509,7 @@ def _large_tiers_mac(failures, repeats=5):
         state = rng.bit_generator.state
         acm = _build_acm(R, Np, C, R, rng, "cuda")
         sel, seen = _recorded_selection(acm, R)
+        _wait_prefetches()
         mac = seen["mac"]
         rec = {"robots": R, "poses": R * Np, "candidates": C,
                "P": mac._P, "E": mac._E,
@@ -916,6 +1527,8 @@ def _large_tiers_mac(failures, repeats=5):
             failures.append(f"large_tiers MAC {R}x{Np}: lambda_2 "
                             f"{rec['lambda2']} vs scipy "
                             f"{rec['lambda2_scipy']}")
+        rec["graphed_vs_eager"] = _mac_graphed_vs_eager(
+            mac, seen, acm.max_iters, failures, f"large_tiers MAC {R}x{Np}")
         if mac._P == 2048:
             cpu_rng = np.random.default_rng()
             cpu_rng.bit_generator.state = state
@@ -929,7 +1542,7 @@ def _large_tiers_mac(failures, repeats=5):
                                 "selections differ")
 
         times = []
-        torch.cuda.synchronize()
+        _sync()
         torch.cuda.reset_peak_memory_stats()
         for _ in range(repeats):
             acm2 = _build_acm(R, Np, C, R, rng, "cuda")
@@ -1030,7 +1643,7 @@ def _large_tiers_pgo(failures):
             phases += ["eager_1", "eager_2"]
         for phase in phases:
             with _Counters() as count:
-                torch.cuda.synchronize()
+                _sync()
                 t0 = time.perf_counter()
                 if phase == "warm":
                     poses = runs["cold"].poses.clone()
@@ -1222,11 +1835,20 @@ def phase_large_tiers(results, failures):
     if not err <= 2e-3:
         failures.append(f"large_tiers LM 2x288: CUDA vs CPU {err} > 2e-3")
 
+    out["small_linalg"] = _small_linalg_checks(mac, rounded, failures)
+
     # device-time breakdowns last: the profiler may slow what runs after it
+    _wait_prefetches()
     out["mac_evaluation_profile"] = _device_profile(
         lambda: mac.evaluate_objective(rounded), 3)
     print(f"  one MAC evaluation at P = {mac._P} profile: "
           + json.dumps(out["mac_evaluation_profile"]))
+    w_init = np.zeros(mac._m)
+    out["mac_selection_profile"] = _device_profile(
+        lambda: mac.fw_subset(w_init, 5, max_iters=20), 2)
+    out["mac_selection_profile"]["loop"] = dict(mac.last_loop)
+    print(f"  one graphed MAC selection at P = {mac._P} profile: "
+          + json.dumps(out["mac_selection_profile"]))
     out["lm_step_profile"] = _device_profile(
         lambda: solver.lm_optimize(arrays_pgo, weights, max_iters=1), 3)
     print(f"  one LM step at {arrays_pgo.num_nodes} nodes profile: "
@@ -1255,7 +1877,7 @@ def _cg_block_sizes(arrays, weights, sizes=(16, 8, 32, 16)):
             solver._CG_BLOCK = K
             solver.lm_optimize(arrays, weights, **_PCG_SOLVE).poses.cpu()
             with _Counters() as count:
-                torch.cuda.synchronize()
+                _sync()
                 t0 = time.perf_counter()
                 res = solver.lm_optimize(arrays, weights, **_PCG_SOLVE)
                 res.poses.cpu()
@@ -1344,7 +1966,7 @@ def _dist_mesh_banks(failures):
                         list(range(n)))
     q_host = rng.standard_normal((_MESH_B, _MESH_DIM), dtype=np.float32)
     banks._sync()                       # the upload is set-up
-    torch.cuda.synchronize()
+    _sync()
     nns.launches = 0
     sims, idx = banks.search_all(q_host)             # the main path
     launches = nns.launches
@@ -1413,7 +2035,7 @@ def _dist_pgo(failures, central):
     carried = None
     for phase in ("cold", "warm"):
         with _Counters() as count:
-            torch.cuda.synchronize()
+            _sync()
             t0 = time.perf_counter()
             est, info = distributed_optimize(
                 problem, mesh, sweeps=30, lm_iters=8, cg_iters=60,
@@ -1505,7 +2127,7 @@ def _dist_process_group(failures, ranks=4):
     results = dry.run_ranks(ranks, "cuda", timeout=300, **sizes)
     wall = time.perf_counter() - t0
     stacked = dry.dryrun(StackedMesh(ranks, "cuda"), **sizes)
-    torch.cuda.synchronize()
+    _sync()
     failures.extend(f"process_group: {f}"
                     for f in dry.compare(results, stacked))
     for res in results:
@@ -1574,29 +2196,54 @@ def _swarm_run(name, failures, robots, keyframes, overrides=None):
     :class:`_Counters` of the mission, after the nodes' warmups)."""
     import torch
 
-    from cslam_tpu_torch.ops import nns
+    from cslam_tpu_torch.ops import nns, small_linalg
     from cslam_tpu_torch.runtime.simulator import (SwarmSimulator,
                                                    SyntheticWorld,
                                                    circle_trajectory)
+    from cslam_tpu_torch.selection import mac
     from cslam_tpu_torch.utils import profiling
     world = SyntheticWorld(nb_places=40, descriptor_dim=32, seed=0)
     trajs = [circle_trajectory(keyframes, radius=10.0 + 0.3 * r,
                                nb_places=40, start_angle=0.05 * r, z=0.2 * r)
              for r in range(robots)]
-    sim = SwarmSimulator(robots, world, trajs, config_overrides={
-        "frontend.inter_robot_detection_period_sec": 3.0,
-        "frontend.inter_robot_loop_closure_budget": 5,
-        "backend.pose_graph_optimization_start_period_ms": 2000,
-        **(overrides or {})}, keyframe_period=0.5, device="cuda")
-    torch.cuda.synchronize()
+    config = {"frontend.inter_robot_detection_period_sec": 3.0,
+              "frontend.inter_robot_loop_closure_budget": 5,
+              "backend.pose_graph_optimization_start_period_ms": 2000,
+              **(overrides or {})}
+    sim = SwarmSimulator(robots, world, trajs, config_overrides=config,
+                         keyframe_period=0.5, device="cuda")
+    # MAC's selection programs, as a deployment warms them: every tier up
+    # to twice the mission's poses (the tier prefetch looks one pose tier
+    # ahead) and 4,096 candidates (the pool of a 4 x 120 swarm reaches the
+    # 4,096 tier), at the mission's config
+    t0 = time.perf_counter()
+    mac.warmup_selection_tiers(2 * robots * keyframes, 4096, device="cuda",
+                               **mac.mac_kwargs_from_params(config))
+    _sync()
+    print(f"  {name}: MAC selection warmup {time.perf_counter() - t0:.1f} s")
     profiling.reset_spans()
     nns.launches = 0
-    with _Counters() as count:
-        t0 = time.perf_counter()
-        sim.run(keyframes * 0.5 + 10.0, dt=0.25)   # the main path
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    small_linalg.reset_launches()
+    eigh = torch.linalg.eigh
+    cuda_eigh = []
+
+    def counted_eigh(A, *args, **kwargs):
+        if A.is_cuda:
+            cuda_eigh.append(tuple(A.shape))
+        return eigh(A, *args, **kwargs)
+    torch.linalg.eigh = counted_eigh
+    try:
+        with _Counters() as count:
+            t0 = time.perf_counter()
+            sim.run(keyframes * 0.5 + 10.0, dt=0.25)   # the main path
+            _sync()
+            wall = time.perf_counter() - t0
+    finally:
+        torch.linalg.eigh = eigh
     launches = nns.launches
+    count.small_linalg = small_linalg.device_launch_counts()
+    count.cuda_eigh_shapes = sorted(set(cuda_eigh))
+    count.cuda_eigh_calls = len(cuda_eigh)
     print(profiling.report())
     spans = profiling.spans()
     per_robot = []
@@ -1643,13 +2290,55 @@ def _pgo_record(tag, count, spans, failures):
                                  for g in _solver_graphs()},
            "shared_pool_bytes": tier_graphs.pool_bytes("cuda")}
     if graphs["captures"]:
-        failures.append(f"{tag}: {graphs['captures']} PGO graph captures "
+        failures.append(f"{tag}: {graphs['captures']} solver graph captures "
                         f"after the warmup ({graphs['by_program']})")
     excess = count.pcg_read_excess()
     if excess:
         failures.append(f"{tag}: PCG solves over their host-read bound "
                         f"{excess[:3]}")
     print(f"  {tag} PGO " + json.dumps(rec))
+    return rec
+
+
+_MAC_SPANS = ("mac.fw_dispatch", "mac.fw_read", "lcd.select_dispatch",
+              "mac.construct")
+
+
+def _mac_record(tag, count, spans, failures, woodbury=False):
+    """MAC over a mission: its spans (seconds and counts), the loop
+    state's counters (selections, FW iterations, evaluations, LOBPCG
+    calls, live and masked iterations, host reads), the selection
+    programs' captures and replays, the small-eigensolver kernels' runs on
+    the device, and the CUDA ``torch.linalg.eigh`` calls. Limits: each
+    selection within its host-read bound (``_Counters.mac_read_excess``);
+    on the Woodbury tier (``woodbury``) the kernels launched and no
+    ``torch.linalg.eigh`` of a CUDA tensor."""
+    summary = count.summary()
+    by_program = count.graphs["by_program"]
+    rec = {"spans": {k: spans.get(k) for k in _MAC_SPANS},
+           **{k: summary[k] for k in (
+               "mac_selections", "fw_iters", "evaluations", "lobpcg_calls",
+               "lobpcg_iters", "lobpcg_masked", "mac_host_reads")},
+           "host_reads_per_fw_iter": (summary["mac_host_reads"]
+                                      / max(summary["fw_iters"], 1)),
+           "programs": {k: by_program[k] for k in ("mac_dense",
+                                                   "mac_woodbury")},
+           "small_linalg_launches": count.small_linalg,
+           "cuda_eigh_calls": count.cuda_eigh_calls,
+           "cuda_eigh_shapes": count.cuda_eigh_shapes[:4]}
+    excess = count.mac_read_excess()
+    if excess:
+        failures.append(f"{tag}: MAC selections over their host-read bound "
+                        f"{excess[:3]}")
+    if woodbury:
+        if not count.small_linalg["eigh"] or not count.small_linalg["svd"]:
+            failures.append(f"{tag}: the small-eigensolver kernels did not "
+                            f"run ({count.small_linalg})")
+        if count.cuda_eigh_calls:
+            failures.append(f"{tag}: {count.cuda_eigh_calls} "
+                            "torch.linalg.eigh calls on CUDA tensors "
+                            f"{count.cuda_eigh_shapes[:4]}")
+    print(f"  {tag} MAC " + json.dumps(rec))
     return rec
 
 
@@ -1663,6 +2352,7 @@ def phase_swarm(results, failures, robots=4, keyframes=120):
     wall, launches, spans, per_robot, count = _swarm_run(
         "swarm", failures, robots, keyframes, _SWARM_WARMUP)
     pgo = _pgo_record("swarm", count, spans, failures)
+    mac = _mac_record("swarm", count, spans, failures)
 
     # small input held against the plain versions on the CPU
     cuda_sim, cpu_sim = _two_robot_sim("cuda"), _two_robot_sim("cpu")
@@ -1675,7 +2365,8 @@ def phase_swarm(results, failures, robots=4, keyframes=120):
     if not abs(ate_cuda - ate_cpu) <= 1e-3:
         failures.append(f"two-robot sim: ATE {ate_cuda} vs {ate_cpu}")
     results["swarm"] = {"launches": launches, "wall_s": wall,
-                        "spans": spans, "robots": per_robot, "pgo": pgo}
+                        "spans": spans, "robots": per_robot, "pgo": pgo,
+                        "mac": mac}
 
 
 def phase_swarm_floored(results, failures, robots=4, keyframes=120):
@@ -1694,6 +2385,8 @@ def phase_swarm_floored(results, failures, robots=4, keyframes=120):
     tiers = sorted(mac._SEEN_TIERS)
     print(f"  MAC tiers seen {tiers}")
     pgo = _pgo_record("swarm_floored", count, spans, failures)
+    mac_rec = _mac_record("swarm_floored", count, spans, failures,
+                          woodbury=True)
     if not any(p == 1024 and mf > 0 for p, _, mf in tiers):
         failures.append("swarm_floored: no MAC solve on the Woodbury tier")
     if count.pcg_solves < 1:
@@ -1702,7 +2395,7 @@ def phase_swarm_floored(results, failures, robots=4, keyframes=120):
         failures.append("swarm_floored: a PGO solve on the dense tier")
     results["swarm_floored"] = {"launches": launches, "wall_s": wall,
                                 "spans": spans, "robots": per_robot,
-                                **pgo}
+                                **pgo, "mac": mac_rec}
 
 
 # -- phase lidar ------------------------------------------------------------
@@ -1796,7 +2489,7 @@ def _lidar_search(failures, device="cuda", N=65536, chunks=8, B=16):
         for j in range(B // 2):
             queries[c, j] = np.roll(scans[src[c, j]], shift[c, j], axis=1) \
                 + rng.normal(0, 0.02, _SC_SHAPE).astype(np.float32)
-    torch.cuda.synchronize()
+    _sync()
     best = {}
     launches = {}
     for name, bank in banks.items():
@@ -1804,7 +2497,7 @@ def _lidar_search(failures, device="cuda", N=65536, chunks=8, B=16):
         t0 = time.perf_counter()
         found = [bank.search_best_batch(q.reshape(B, -1)) for q in queries]
         one = [bank.search_best(q.reshape(-1)) for q in queries[:, 0]]
-        torch.cuda.synchronize()
+        _sync()
         wall = time.perf_counter() - t0
         launches[name] = nns.launches       # the main path's K1 launches
         best[name] = ([[item for item, _ in f] for f in found],
@@ -1905,13 +2598,54 @@ def _verify_pairs(rng):
     return pairs, truth
 
 
+def _mission_mac_warmup(det, robots, steps):
+    """MAC's selection programs warmed as
+    ``benchmarks/{lidar,visual}_e2e_scale_bench.py`` warm the JAX
+    package's before their missions: every tier of
+    ``selection_tier_grid(robots * steps, 2048)`` with the detection
+    node's MAC keywords and its selector's FW iteration cap."""
+    from cslam_tpu_torch.selection import mac
+    kwargs = mac.mac_kwargs_from_params(det.params)
+    for p, e in mac.selection_tier_grid(robots * steps, 2048,
+                                        e_floor=kwargs["e_floor"],
+                                        p_floor=kwargs["p_floor"]):
+        mac.warmup_selection_tier(
+            p, e, max_iters=det.lcm.candidate_selector.max_iters,
+            device="cuda", **kwargs)
+
+
+def _mac_graph_counts():
+    """(captures, captures off the main thread, replays) of MAC's two
+    selection program sets."""
+    from cslam_tpu_torch.selection import mac
+    return {g.name: (g.captures, g.captures_bg, g.replays)
+            for g in (mac.DENSE_FW_GRAPHS, mac.WOODBURY_FW_GRAPHS)}
+
+
+def _mac_mission_graphs(before, tag, failures):
+    """MAC's selection programs in a mission since ``before`` (a
+    :func:`_mac_graph_counts`): captures, those made by prefetch threads
+    (the next tier, in the background, as the JAX package compiles it),
+    replays. Limit: no capture on the main thread, whose selections the
+    warmup covers."""
+    after = _mac_graph_counts()
+    delta = {k: dict(zip(("captures", "captures_bg", "replays"),
+                         (a - b for a, b in zip(after[k], before[k]))))
+             for k in after}
+    main = sum(d["captures"] - d["captures_bg"] for d in delta.values())
+    if main:
+        failures.append(f"{tag}: {main} MAC program captures on the main "
+                        f"thread after the warmup ({delta})")
+    return delta
+
+
 def _syncs_in(fn):
     """Synchronizing CUDA calls ``torch.cuda.set_sync_debug_mode`` reports
     while ``fn`` runs, and where."""
     import warnings
 
     import torch
-    torch.cuda.synchronize()
+    _sync()
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
@@ -1943,7 +2677,7 @@ def _graph_vs_eager(tag, graphs, operands, failures, repeats=5, **static):
     def eager():
         return graphs.fn(*operands, **static)
     got, want = graph(), eager()
-    torch.cuda.synchronize()
+    _sync()
     rec = {"max_abs_T_diff_eager": float((got[0] - want[0]).abs().max()),
            "outputs_equal_eager": [bool(torch.equal(a, b))
                                    for a, b in zip(got[1:], want[1:])]}
@@ -1960,10 +2694,10 @@ def _graph_vs_eager(tag, graphs, operands, failures, repeats=5, **static):
     if rec["graph_host_syncs"]:
         failures.append(f"{tag}: host syncs in a graphed chunk "
                         f"{rec['graph_host_syncs']}")
-    torch.cuda.synchronize()
+    _sync()
     torch.cuda.reset_peak_memory_stats()
     eager()
-    torch.cuda.synchronize()
+    _sync()
     rec["eager_peak_device_mb"] = torch.cuda.max_memory_allocated() / 2 ** 20
     rec.update(captures=graphs.captures, replays=graphs.replays,
                graph_pool_bytes=graphs.pool_bytes,
@@ -2155,12 +2889,14 @@ def _lidar_mission(failures, robots=3, steps=40, device="cuda",
     from cslam_tpu_torch.ops import registration as reg
     tiers = (1, 2, 4, 8)
     nodes[0][1].warmup(pair_tiers=tiers)
-    torch.cuda.synchronize()
+    _mission_mac_warmup(nodes[0][2], robots, steps)
+    _sync()
     warmed = reg.VERIFY_GRAPHS.captures
     if warmed != len(tiers):
         failures.append(f"lidar mission: {warmed} verification graphs "
                         f"after the warmup of tiers {tiers}")
     graphs_before = _graph_counts()
+    mac_before = _mac_graph_counts()
     profiling.reset_spans()
     nns.launches = 0
     t0 = time.perf_counter()
@@ -2177,7 +2913,7 @@ def _lidar_mission(failures, robots=3, steps=40, device="cuda",
         for ctx, *_ in nodes:
             ctx.poll_timers()
         bus.deliver()
-    torch.cuda.synchronize()
+    _sync()
     wall = time.perf_counter() - t0
     launches = nns.launches
     be0 = nodes[0][3]
@@ -2191,10 +2927,12 @@ def _lidar_mission(failures, robots=3, steps=40, device="cuda",
             (poses[i][:3, 3] - gt[0][i][1][:3, 3]) ** 2) for i in poses])))
     counters = profiling.counters()
     spans = {k: v for k, v in profiling.spans().items()
-             if k.split(".")[0] in ("lidar", "verify", "lcd", "nns")
+             if k.split(".")[0] in ("lidar", "verify", "lcd", "nns", "mac")
              or k == "pgo.optimize"}
     chunks = int(spans.get("verify.dispatch", {}).get("count", 0))
     graphs = _graph_delta(graphs_before, "lidar mission", failures, chunks)
+    graphs["mac"] = _mac_mission_graphs(mac_before, "lidar mission",
+                                        failures)
     out = {"robots": robots, "steps": steps, "scenes": scenes,
            "points": points, "drain_steps": drain,
            "cuts": {"robots": f"{robots} (bench 5)",
@@ -2202,7 +2940,8 @@ def _lidar_mission(failures, robots=3, steps=40, device="cuda",
                     "tier floors": "config defaults (bench pins MAC mf/P/E "
                                    "and PGO np/ne at 2048)",
                     "warmup": "the verification graphs of tiers "
-                              f"{tiers} at pad 1024"},
+                              f"{tiers} at pad 1024, MAC's selection "
+                              "programs as the bench warms them"},
            "wall_s": wall, "keyframes": keyframes,
            "verify_chunks": chunks, "graphs_warmed": warmed,
            "graphs": graphs,
@@ -2411,7 +3150,7 @@ def _visual_verify(failures, device="cuda"):
     for name, run in chunks.items():
         rec = out[name] = {}
         T, inl = run(device)
-        torch.cuda.synchronize()
+        _sync()
         T_cpu, inl_cpu = run("cpu")
         errs = _pose_errors(T.cpu().numpy(), truth)
         rec["max_rot_err_deg"] = max(e[0] for e in errs)
@@ -2537,7 +3276,9 @@ def _visual_mission(failures, robots=3, steps=40, device="cuda", scenes=40,
             frames[(r, i)] = (np.stack([img] * 3, axis=-1), dep)
     native_available = native.available()      # builds the library once
     if device != "cpu":
-        torch.cuda.synchronize()
+        _mission_mac_warmup(nodes[0][2], robots, steps)
+        _sync()
+        mac_before = _mac_graph_counts()
     graphs_before = _graph_counts()
     profiling.reset_spans()
     nns.launches = 0
@@ -2558,7 +3299,7 @@ def _visual_mission(failures, robots=3, steps=40, device="cuda", scenes=40,
             ctx.poll_timers()
         bus.deliver()
     if device != "cpu":
-        torch.cuda.synchronize()
+        _sync()
     wall = time.perf_counter() - t0
     launches = nns.launches
     be0 = nodes[0][3]
@@ -2571,11 +3312,13 @@ def _visual_mission(failures, robots=3, steps=40, device="cuda", scenes=40,
         return float(np.sqrt(np.mean([np.sum(
             (poses[i][:3, 3] - gt[0][i][1][:3, 3]) ** 2) for i in poses])))
     spans = {k: v for k, v in profiling.spans().items()
-             if k.split(".")[0] in ("rgbd", "lcd", "nns")
+             if k.split(".")[0] in ("rgbd", "lcd", "nns", "mac")
              or k == "pgo.optimize"}
     tag = f"visual mission ({sensor})"
     graphs = (_graph_delta(graphs_before, tag, failures)
               if device != "cpu" else None)
+    if device != "cpu":
+        graphs["mac"] = _mac_mission_graphs(mac_before, tag, failures)
     out = {"sensor": sensor, "front_end": type(nodes[0][1]).__name__,
            "robots": robots, "steps": steps, "scenes": scenes,
            "frame": f"{_VIS_W}x{_VIS_H}", "drain_steps": drain,
@@ -2953,7 +3696,7 @@ def _deploy_stereo(failures, root, device="cuda", frames=20, dt=0.25,
     native.available()                       # builds the library once
     first = driver(device)
     if device != "cpu":
-        torch.cuda.synchronize()
+        _sync()
     graphs_before = _graph_counts()
     profiling.reset_spans()
     nns.launches = 0
@@ -2981,7 +3724,7 @@ def _deploy_stereo(failures, root, device="cuda", frames=20, dt=0.25,
     second.clock.advance(first.clock.now())
     second.run(extra_steps=extra_steps, dt=dt)
     if device != "cpu":
-        torch.cuda.synchronize()
+        _sync()
     wall = time.perf_counter() - t0
     graphs = (_graph_delta(graphs_before, "stereo replay", failures)
               if device != "cpu" else None)
@@ -3083,14 +3826,14 @@ def _deploy_lidar(failures, root, device="cuda", frames=20,
                                              device=device)
     robot0.frontend.warmup(pair_tiers=(1, 2, 4, 8))
     if device != "cpu":
-        torch.cuda.synchronize()
+        _sync()
     graphs_before = _graph_counts()
     profiling.reset_spans()
     nns.launches = 0
     t0 = time.perf_counter()
     driver.run(extra_steps=extra_steps, dt=dt)       # the main path
     if device != "cpu":
-        torch.cuda.synchronize()
+        _sync()
     wall = time.perf_counter() - t0
     chunks = int(profiling.spans().get("verify.dispatch", {}).get("count", 0))
     graphs = (_graph_delta(graphs_before, "lidar replay", failures, chunks)
@@ -3186,9 +3929,10 @@ def main() -> int:
     parser.add_argument(
         "--phases",
         default="bank_scan,swarm,swarm_floored,large_tiers,distributed,"
-                "frontend,lidar,visual,deploy",
+                "frontend,lidar,visual,deploy,mac_calls",
         help="comma-separated subset of bank_scan,swarm,swarm_floored,"
-             "large_tiers,distributed,frontend,lidar,visual,deploy")
+             "large_tiers,distributed,frontend,lidar,visual,deploy,"
+             "mac_calls")
     args = parser.parse_args()
     phases = args.phases.split(",")
 
@@ -3216,18 +3960,21 @@ def main() -> int:
         print(f"phase {phase}")
         t_phase = time.perf_counter()
         try:
+            _wait_prefetches()
             {"bank_scan": phase_bank_scan, "frontend": phase_frontend,
              "swarm": phase_swarm, "swarm_floored": phase_swarm_floored,
              "large_tiers": phase_large_tiers,
              "distributed": phase_distributed,
              "lidar": phase_lidar,
              "visual": phase_visual,
-             "deploy": phase_deploy}[phase](results, failures)
+             "deploy": phase_deploy,
+             "mac_calls": phase_mac_calls}[phase](results, failures)
         except Exception as exc:  # noqa: BLE001 - report, then fail the run
             import traceback
             traceback.print_exc()
             failures.append(f"{phase}: {type(exc).__name__}: {exc}")
         print(f"phase {phase}: {time.perf_counter() - t_phase:.1f} s")
+    _wait_prefetches()              # no capture left running at exit
 
     card = _card_line()
     print(card)
@@ -3296,7 +4043,61 @@ def main() -> int:
         "device_ms": b1.get("profile", {}).get("device_ms"),
         "library_device_ms": b1.get("library_profile", {}).get("device_ms"),
         "variants": {"B512_k10": front.get("tile_scan_b512")}}
-    print(json.dumps({"kernels": [kernel, tile]}))
+    lt = results.get("large_tiers", {})
+    sml = lt.get("small_linalg", {})
+    times = sml.get("times_ms", {})
+    missions = [results.get(ph, {}).get("mac", {})
+                for ph in ("swarm", "swarm_floored")]
+
+    def runs(kind):
+        return sum(m.get("small_linalg_launches", {}).get(kind, 0)
+                   for m in missions)
+    small_eigh = {
+        "name": "small_eigh", "route": "cuda",
+        "source": "cslam_tpu_torch/csrc/small_eigh.cu",
+        "replaces": "no TPU kernel: torch.linalg.eigh in LOBPCG "
+                    "(cslam_tpu_torch/ops/lobpcg.py; the JAX package's "
+                    "lobpcg_standard at cslam_tpu/ops/fiedler.py:230)",
+        "launches": runs("eigh"),
+        "max_abs_err": max([sml.get(k, {}).get("max_abs_err", 0.0)
+                            for k in ("rayleigh_ritz", "svqb", "random")]),
+        "ms": times.get("eigh12"), "plain_ms": times.get("eigh12_plain"),
+        "bound_ms": sml.get("eigh12_bound", {}).get("bound_ms"),
+        "bound_by": sml.get("eigh12_bound", {}).get("bound_by"),
+        "library_ms": times.get("eigh12_library"),
+        "shape": "12 x 12, batch 1 (Rayleigh-Ritz at block 4)",
+        "variants": {"4x4": {"ms": times.get("eigh4"),
+                             "library_ms": times.get("eigh4_library")}},
+        "checks": {k: sml.get(k) for k in ("rayleigh_ritz", "svqb",
+                                           "random")}}
+    small_svd = {
+        "name": "small_svd", "route": "cuda",
+        "source": "cslam_tpu_torch/csrc/small_eigh.cu",
+        "replaces": "no TPU kernel: torch.linalg.svd in LOBPCG's basis "
+                    "extension (cslam_tpu_torch/ops/lobpcg.py)",
+        "launches": runs("svd"),
+        "max_abs_err": sml.get("svd", {}).get("max_abs_err"),
+        "ms": times.get("svd4"), "plain_ms": times.get("svd4_plain"),
+        "bound_ms": sml.get("svd4_bound", {}).get("bound_ms"),
+        "bound_by": sml.get("svd4_bound", {}).get("bound_by"),
+        "library_ms": times.get("svd4_library"),
+        "shape": "4 x 4, batch 1", "checks": sml.get("svd")}
+    stage = max(results.get("mac_calls", {}).get("stages", []),
+                key=lambda r: r["P"], default={})
+    graph_while = {
+        "name": "graph_while", "route": "cuda",
+        "source": "cslam_tpu_torch/csrc/graph_while.cu",
+        "replaces": "no TPU kernel: the lax.while_loop of each LOBPCG "
+                    "stage (cslam_tpu/ops/fiedler.py:230-245)",
+        "launches": sum(m.get("programs", {}).get("mac_woodbury", {}).get(
+            "lobpcg", {}).get("replays", 0) for m in missions),
+        "max_abs_err": stage.get("max_abs_err"), "ms": stage.get("ms"),
+        "plain_ms": stage.get("plain_ms"), "bound_ms": stage.get("bound_ms"),
+        "bound_by": stage.get("bound_by"), "library_ms": None,
+        "shape": f"one LOBPCG stage at P = {stage.get('P')}, "
+                 f"{stage.get('iterations')} iterations (graphed, eager)"}
+    print(json.dumps({"kernels": [kernel, tile, small_eigh, small_svd,
+                                  graph_while]}))
     if failures:
         for f in failures:
             print(f"FAIL {f}", file=sys.stderr)

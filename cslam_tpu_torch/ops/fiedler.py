@@ -31,6 +31,7 @@ from cslam_tpu_torch.ops.lobpcg import lobpcg_standard
 
 _EPS_SHIFT = 1e-5   # epsilon ridge on the whole spectrum (subtracted exactly)
 _BIG_CINV = 1e12    # 1/weight stand-in for absent (zero-weight) edges
+RESID_TOL = 1e-4    # the second LOBPCG stage's residual gate
 
 
 def laplacian_from_edges(idx_i: torch.Tensor, idx_j: torch.Tensor,
@@ -55,6 +56,20 @@ def rayleigh_quotient(idx_i: torch.Tensor, idx_j: torch.Tensor,
     return torch.sum(weights * diff * diff)
 
 
+def deflated_laplacian(L: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
+    """The matrix whose smallest eigenpair is (lambda_2, Fiedler vector):
+    ``L`` with ``sigma`` on the padded nodes' diagonal and the constant
+    mode deflated by ``sigma u u^T``, symmetrized."""
+    active = active.float()
+    p = torch.clamp(torch.sum(active), min=1.0)
+    sigma = 2.0 * torch.max(torch.diagonal(L)) + 1.0
+    u = active / torch.sqrt(p)
+    B = (L
+         + sigma * torch.diag(1.0 - active)
+         + sigma * torch.outer(u, u))
+    return 0.5 * (B + B.T)  # enforce symmetry for eigh stability
+
+
 @highest_precision
 def fiedler_pair(L: torch.Tensor, active: torch.Tensor):
     """(lambda_2, Fiedler vector) via dense eigh on the deflated Laplacian.
@@ -63,16 +78,8 @@ def fiedler_pair(L: torch.Tensor, active: torch.Tensor):
         L: ``[P, P]`` dense Laplacian (rows/cols of inactive nodes all zero).
         active: ``[P]`` float32 0/1 mask of real nodes.
     """
-    active = active.float()
-    p = torch.clamp(torch.sum(active), min=1.0)
-    sigma = 2.0 * torch.max(torch.diagonal(L)) + 1.0
-    u = active / torch.sqrt(p)
-    B = (L
-         + sigma * torch.diag(1.0 - active)
-         + sigma * torch.outer(u, u))
-    B = 0.5 * (B + B.T)  # enforce symmetry for eigh stability
-    eigvals, eigvecs = torch.linalg.eigh(B)
-    return eigvals[0], eigvecs[:, 0] * active
+    eigvals, eigvecs = torch.linalg.eigh(deflated_laplacian(L, active))
+    return eigvals[0], eigvecs[:, 0] * active.float()
 
 
 def algebraic_connectivity(idx_i: torch.Tensor, idx_j: torch.Tensor,
@@ -144,15 +151,69 @@ def chain_lowrank_precompute(chain_w: torch.Tensor, lr_i: torch.Tensor,
     return {"Tinv": Tinv, "U": U, "Y": Y, "G": G, "sigma": float(sigma)}
 
 
+#: the unmasked start draw per (P, block, device), made once
+_START_DRAWS: dict = {}
+
+
 def _start_block(P: int, block: int, active: torch.Tensor) -> torch.Tensor:
     """The deterministic LOBPCG start block: standard normals from a
     generator seeded with 7, drawn on the CPU (so every device starts from
-    the same block) and masked to the active nodes. The JAX package draws
+    the same block) and masked to the active nodes. The draw is copied to
+    each device once and kept there. The JAX package draws
     ``jax.random.normal(PRNGKey(7), (P, block))``, which torch cannot
     reproduce; parity tests substitute that draw here."""
-    gen = torch.Generator().manual_seed(7)
-    X = torch.randn((P, block), generator=gen, dtype=torch.float32)
-    return X.to(active.device) * active[:, None]
+    key = (P, block, str(active.device))
+    X = _START_DRAWS.get(key)
+    if X is None:
+        gen = torch.Generator().manual_seed(7)
+        X = _START_DRAWS[key] = torch.randn(
+            (P, block), generator=gen, dtype=torch.float32).to(active.device)
+    return X * active[:, None]
+
+
+def woodbury_factor(G: torch.Tensor, lr_w: torch.Tensor,
+                    cinv_sigma: torch.Tensor) -> torch.Tensor:
+    """The lower Cholesky factor of the capacitance ``S = G + diag(C^-1)``
+    for the low-rank weights ``lr_w`` (``cinv_sigma``: ``[1]``, the
+    deflation column's ``1 / sigma``). A failed factorization yields NaN,
+    as the JAX package's ``cho_factor`` does, without a host read."""
+    lr_w = lr_w.float()
+    cinv = torch.where(lr_w > 0, 1.0 / torch.clamp(lr_w, min=1e-30),
+                       torch.full_like(lr_w, _BIG_CINV))
+    S = G + torch.diag(torch.cat([cinv, cinv_sigma]))
+    chol, info = torch.linalg.cholesky_ex(S)
+    return torch.where(info == 0, chol, torch.full_like(chol, float("nan")))
+
+
+def woodbury_inverse(Tinv: torch.Tensor, U: torch.Tensor, Y: torch.Tensor,
+                     chol: torch.Tensor):
+    """``x -> B^-1 x = t - Y S^-1 U^T t``, ``t = Tinv x``; ``S^-1`` by two
+    triangular solves against :func:`woodbury_factor`'s ``chol`` (cuBLAS on
+    the card: no host read, no MAGMA)."""
+    def apply(x):
+        t = Tinv @ x
+        z = torch.linalg.solve_triangular(chol, U.T @ t, upper=False)
+        return t - Y @ torch.linalg.solve_triangular(chol.T, z, upper=True)
+    return apply
+
+
+def residual_ratio(b_inverse, theta: torch.Tensor,
+                   V: torch.Tensor) -> torch.Tensor:
+    """The leading Ritz pair's relative residual ``||B^-1 v - theta v|| /
+    theta`` (one operator apply): the gate of the second LOBPCG stage."""
+    resid = torch.linalg.norm(b_inverse(V[:, :1]) - theta[0] * V[:, :1])
+    return resid / torch.clamp(theta[0], min=1e-30)
+
+
+def fiedler_from_ritz(theta: torch.Tensor, V: torch.Tensor,
+                      active: torch.Tensor):
+    """(lambda_2, unit Fiedler vector) from the leading Ritz pair of
+    ``B^-1``; lambda_2 shift-corrected from the Ritz value."""
+    v = V[:, 0] * active
+    v = v / torch.clamp(torch.linalg.norm(v), min=1e-30)
+    lam2 = torch.clamp(1.0 / torch.clamp(theta[0], min=1e-30) - _EPS_SHIFT,
+                       min=0.0)
+    return lam2, v
 
 
 @highest_precision
@@ -160,7 +221,7 @@ def fiedler_pair_chain_lowrank(pre: dict, lr_w: torch.Tensor,
                                active: torch.Tensor,
                                lobpcg_iters: int = 48, block: int = 4,
                                short_iters: int = 14,
-                               resid_tol: float = 1e-4,
+                               resid_tol: float = RESID_TOL,
                                X0: torch.Tensor | None = None,
                                return_block: bool = False):
     """(lambda_2, Fiedler vector) via LOBPCG on the Woodbury-inverted
@@ -176,37 +237,25 @@ def fiedler_pair_chain_lowrank(pre: dict, lr_w: torch.Tensor,
     block. lambda_2 is returned shift-corrected from the leading Ritz
     value; MAC takes its objective from a Rayleigh quotient over the edges
     instead.
+
+    This is the eager form (its stops read on the host); MAC's Frank-Wolfe
+    loop runs the same stages as captured step programs
+    (``selection/mac.py``).
     """
     P = active.shape[0]
-    lr_w = lr_w.float()
-    cinv = torch.where(lr_w > 0, 1.0 / torch.clamp(lr_w, min=1e-30),
-                       torch.full_like(lr_w, _BIG_CINV))
-    cinv = torch.cat([cinv, cinv.new_full((1,), 1.0 / pre["sigma"])])
-    S = pre["G"] + torch.diag(cinv)
-    chol, info = torch.linalg.cholesky_ex(S)
-    # a failed factorization yields NaN, as the JAX package's cho_factor
-    # does, without a host read
-    chol = torch.where(info == 0, chol, torch.full_like(chol, float("nan")))
-    Tinv, U, Y = pre["Tinv"], pre["U"], pre["Y"]
-
-    def b_inverse(x):
-        t = Tinv @ x
-        return t - Y @ torch.cholesky_solve(U.T @ t, chol)
-
+    chol = woodbury_factor(pre["G"], lr_w, lr_w.new_full(
+        (1,), 1.0 / pre["sigma"]))
+    b_inverse = woodbury_inverse(pre["Tinv"], pre["U"], pre["Y"], chol)
     if X0 is None:
         X0 = _start_block(P, block, active)
     if short_iters >= lobpcg_iters:
         theta, V, _ = lobpcg_standard(b_inverse, X0, m=lobpcg_iters)
     else:
         theta, V, _ = lobpcg_standard(b_inverse, X0, m=short_iters)
-        resid = torch.linalg.norm(b_inverse(V[:, :1]) - theta[0] * V[:, :1])
-        if bool(resid / torch.clamp(theta[0], min=1e-30) > resid_tol):
+        if bool(residual_ratio(b_inverse, theta, V) > resid_tol):
             theta, V, _ = lobpcg_standard(b_inverse, V,
                                           m=lobpcg_iters - short_iters)
-    v = V[:, 0] * active
-    v = v / torch.clamp(torch.linalg.norm(v), min=1e-30)
-    lam2 = torch.clamp(1.0 / torch.clamp(theta[0], min=1e-30) - _EPS_SHIFT,
-                       min=0.0)
+    lam2, v = fiedler_from_ritz(theta, V, active)
     if return_block:
         return lam2, v, V
     return lam2, v

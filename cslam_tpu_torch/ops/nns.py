@@ -83,7 +83,11 @@ _EPS = 1e-12
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = {"bank_scan": _CSRC / "bank_scan.cu",
-           "tile_scan": _CSRC / "tile_scan.cu"}
+           "tile_scan": _CSRC / "tile_scan.cu",
+           # LOBPCG's small eigensolves (``ops/small_linalg.py``)
+           "small_eigh": _CSRC / "small_eigh.cu",
+           # while loops of CUDA graphs (``utils/tier_graphs.py``)
+           "graph_while": _CSRC / "graph_while.cu"}
 BUILD_DIR = _CSRC / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
@@ -100,6 +104,12 @@ _ENTRY = {
         "cslam_tile_scan": [_vp, _ci, _vp, _ci, _ci, _vp, _ci, _ci, _ci, _vp,
                             _vp, _vp, _vp, _vp, _vp],
         "cslam_tile_scan_splits": [_ci, _ci, _ci, _ci, _ci]},
+    "small_eigh": {
+        "cslam_small_eigh": [_vp, _vp, _vp, _ci, _ci, _vp, _vp],
+        "cslam_small_svd": [_vp, _vp, _vp, _vp, _ci, _ci, _vp, _vp]},
+    "graph_while": {
+        "cslam_while_create": [_vp, _ci, _vp, _vp],
+        "cslam_while_launch": [_vp, _vp]},
 }
 
 #: K1 kernel launches since import (or since the caller last reset it)
@@ -116,8 +126,8 @@ def _nvcc() -> str:
     if path is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
         path = "/usr/local/cuda/bin/nvcc"
     if path is None:
-        raise RuntimeError("nvcc not found: the bank-scan kernels are built "
-                           "from csrc/*.cu at first use on the card")
+        raise RuntimeError("nvcc not found: the kernels are built from "
+                           "csrc/*.cu at first use on the card")
     return path
 
 

@@ -223,13 +223,18 @@ class DecentralizedPGO:
         grid = []
         for np_tier in tiers(expected_poses, np_floor):
             # realistic SLAM graphs have edges ~ nodes + loop closures:
-            # warm only the (n, n) and (n, 2n) edge tiers
-            for ne_tier in {max(np_tier, ne_floor),
-                            max(min(2 * np_tier,
-                                    max(_tier(max(expected_edges, 1)),
-                                        np_tier)),
-                                ne_floor)}:
-                grid.append((np_tier, ne_tier))
+            # warm the edge tiers a solve pads to (``ne_floor`` times a
+            # power of two, not a power of two itself when the floor is
+            # not) from n / 2 to 2n. A graph that pads to a pose tier
+            # above the floor holds more than n / 2 poses, so, connected,
+            # at least n / 2 edges; on the floor pose tier, where a
+            # mission's first small graphs pad, from the floor.
+            hi = _tier(min(2 * np_tier, max(expected_edges, np_tier)),
+                       minimum=ne_floor)
+            lo = _tier(np_tier // 2, minimum=ne_floor)
+            for ne_tier in tiers(hi, ne_floor):
+                if np_tier == np_floor or ne_tier >= lo:
+                    grid.append((np_tier, ne_tier))
         return grid
 
     def warmup_tier(self, np_tier: int, ne_tier: int) -> None:

@@ -366,7 +366,8 @@ class AlgebraicConnectivityMaximization:
                        mac.num_lr_fixed))  # the tier already in use
         for nxt in nexts:
             prefetch_selection_tier_async(
-                *nxt, max_iters=self.max_iters, **mac_kwargs)
+                *nxt, max_iters=self.max_iters, device=self.device,
+                **mac_kwargs)
         if mac._m == 0:
             return mac, None
         return mac, mac.fw_subset_dispatch(w_init, nb_to_choose,

@@ -30,12 +30,13 @@ it: one launch per chunk.
   what the captures reserved.
 - A capture that fails raises, naming the function and the key; nothing
   falls back to the eager call on the card.
-- Captures run in ``thread_local`` mode: only the capturing thread is
-  barred from calls a capture forbids (a synchronous copy, a pinned
-  allocation, a device synchronize). The back end may capture a PGO tier
-  in its optimization thread while the main thread's front end copies to
-  the device (``tools/multi_process_swarm.py``); in the default global
-  mode that copy fails.
+- Captures run one at a time (they record into one pool), in
+  ``thread_local`` mode: only the capturing thread is barred from calls a
+  capture forbids (a synchronous copy, a pinned allocation, a device
+  synchronize). The back end may capture a PGO tier in its optimization
+  thread while the main thread's front end copies to the device
+  (``tools/multi_process_swarm.py``); in the default global mode that
+  copy fails.
 - On the CPU the function runs eagerly (the plain path); keys are recorded
   there too, so a CPU test can show that a warmup covers production's
   keys.
@@ -44,9 +45,11 @@ Counters (plain integers): ``captures`` and ``replays`` count on CUDA,
 ``keys_seen`` everywhere.
 
 :class:`StepGraphs` is the sibling for a loop: the programs of one
-``lax.while_loop`` body (the PGO solver's LM and PCG steps) that share
-their loop state on the device, each captured once per key and replayed
-until a device flag, read once per block, says stop.
+``lax.while_loop`` body (the PGO solver's LM and PCG steps, MAC's
+Frank-Wolfe and LOBPCG steps) that share their loop state on the device,
+each captured once per key and replayed until a device flag, read once per
+block, says stop; an inner loop whose stop the host should not read at all
+(LOBPCG) runs as a CUDA graph WHILE node.
 """
 from __future__ import annotations
 
@@ -61,6 +64,9 @@ import torch
 _WARMUP_RUNS = 2
 _POOLS: Dict[int, tuple] = {}
 _POOL_BYTES: Dict[int, int] = {}
+# one capture at a time: every capture of a device records into its one
+# shared pool, and two captures recording into a pool at once fail
+_CAPTURE_LOCK = threading.RLock()
 
 
 def pool_bytes(device=None) -> int:
@@ -70,6 +76,15 @@ def pool_bytes(device=None) -> int:
     if index is None:
         index = torch.cuda.current_device()
     return _POOL_BYTES.get(index, 0)
+
+
+def synchronize(device=None) -> None:
+    """``torch.cuda.synchronize(device)`` once no capture is in flight: a
+    device-wide synchronize while another thread captures (a prefetch of
+    the next selection tier, a back end's PGO tier) fails, and so does
+    the capture."""
+    with _CAPTURE_LOCK:
+        torch.cuda.synchronize(device)
 
 
 def host_operands(device, *values, dtype=torch.float32):
@@ -90,14 +105,16 @@ def host_operands(device, *values, dtype=torch.float32):
     return out
 
 
-def _capture_in_pool(device, label, key, warm, body):
+def _capture_in_pool(device, label, key, warm, body, keep_graph=False):
     """Capture ``body()`` as a CUDA graph in ``device``'s shared pool, after
     ``warm()`` has run ``_WARMUP_RUNS`` times on a side stream (and in
     ``thread_local`` mode, see the module note). Returns the graph,
     ``body``'s result and the bytes the capture reserved, which it also
-    adds to :func:`pool_bytes`. A failure raises, naming ``label`` and
-    ``key``."""
-    with torch.cuda.device(device):
+    adds to :func:`pool_bytes`. ``keep_graph`` keeps the graph's
+    ``cudaGraph_t`` (``raw_cuda_graph``). A failure raises, naming
+    ``label`` and ``key``. Captures of all threads take turns (a thread
+    that only replays does not wait)."""
+    with _CAPTURE_LOCK, torch.cuda.device(device):
         try:
             side = torch.cuda.Stream()
             side.wait_stream(torch.cuda.current_stream())
@@ -110,7 +127,8 @@ def _capture_in_pool(device, label, key, warm, body):
             reserved = torch.cuda.memory_reserved(device)
             if device.index not in _POOLS:
                 _POOLS[device.index] = torch.cuda.graph_pool_handle()
-            graph = torch.cuda.CUDAGraph()
+            graph = (torch.cuda.CUDAGraph(keep_graph=True) if keep_graph
+                     else torch.cuda.CUDAGraph())
             with torch.cuda.graph(graph, pool=_POOLS[device.index],
                                   capture_error_mode="thread_local"):
                 result = body()
@@ -210,20 +228,36 @@ class StepGraphs:
     one), the programs run eagerly. ``status()`` starts a copy of the
     state's ``"status"`` tensor to pinned host memory behind the queue and
     returns a handle whose ``wait()`` is the loop's only host read. Solves
-    of one :class:`StepGraphs` are serialized by a lock (their state
-    buffers are shared per key). Counters as :class:`TierGraphs`', plus
-    ``by_program``: captures and replays per program name."""
+    of one key are serialized by that key's lock (its state buffers are
+    shared); solves of other keys, such as a prefetch thread's captures
+    of the next tier, do not wait for them. Counters as
+    :class:`TierGraphs`', plus ``by_program``: captures and replays per
+    program name, and ``captures_bg``: the captures made off the main
+    thread (a prefetch's or a back end's, concurrent with the main
+    loop).
+
+    :meth:`_EagerLoop.run_while` runs a program while a 0-d bool entry of
+    the state is set (the program clears it when its loop stops): the
+    counterpart of an inner ``lax.while_loop``. On CUDA the program's
+    capture becomes the body of a conditional WHILE node
+    (``csrc/graph_while.cu``), so the whole inner loop is one launch with
+    its stop test on the device and no iteration past it; eagerly the flag
+    is read on the host before each run. :meth:`_EagerLoop.put` writes a
+    state entry from the host side (the result of a library call run
+    between two programs)."""
 
     def __init__(self, name: str, programs: Dict[str, Callable]):
         self.name = name
         self.programs = programs
         self.keys = set()
         self.captures = 0
+        self.captures_bg = 0
         self.replays = 0
         self.pool_bytes = 0
         self.by_program = {n: collections.Counter() for n in programs}
         self._loops: Dict[tuple, "_GraphLoop"] = {}
-        self._lock = threading.Lock()
+        self._locks: Dict[tuple, threading.Lock] = {}
+        self._meta = threading.Lock()   # keys, key locks and counters
 
     @property
     def keys_seen(self) -> int:
@@ -239,8 +273,10 @@ class StepGraphs:
                tuple((n, tuple(t.shape), t.dtype)
                      for n, t in operands.items()),
                tuple(sorted(static.items())))
-        self.keys.add(key)
-        with self._lock:
+        with self._meta:
+            self.keys.add(key)
+            lock = self._locks.setdefault(key, threading.Lock())
+        with lock:
             if device.type != "cuda" or eager:
                 yield _EagerLoop(self, {n: t.to(device, non_blocking=True)
                                         for n, t in operands.items()},
@@ -252,6 +288,18 @@ class StepGraphs:
                                                      operands, static)
             loop.load(operands)
             yield loop
+
+    def _count(self, name: str, what: str, grown: int = 0) -> None:
+        """Add one to ``what`` (``captures`` or ``replays``), overall and
+        for program ``name``, and ``grown`` pool bytes, under the set's
+        lock (solves of several keys may run in several threads)."""
+        with self._meta:
+            setattr(self, what, getattr(self, what) + 1)
+            self.by_program[name][what] += 1
+            self.pool_bytes += grown
+            if (what == "captures" and threading.current_thread()
+                    is not threading.main_thread()):
+                self.captures_bg += 1
 
 
 class _Status:
@@ -284,6 +332,13 @@ class _EagerLoop:
         self.state.update(self.graphs.programs[name](
             self.state, self.operands, **self.static))
 
+    def run_while(self, name: str, flag: str) -> None:
+        while bool(self.state[flag]):
+            self.run(name)
+
+    def put(self, **tensors) -> None:
+        self.state.update(tensors)
+
     def status(self) -> _Status:
         return _Status(self.state["status"])
 
@@ -301,6 +356,7 @@ class _GraphLoop(_EagerLoop):
                                   for n, t in operands.items()}, static)
         self.key, self.device = key, device
         self._captured: Dict[str, torch.cuda.CUDAGraph] = {}
+        self._loops: Dict[tuple, "_WhileLoop"] = {}
 
     def load(self, operands) -> None:
         for n, t in operands.items():
@@ -311,13 +367,31 @@ class _GraphLoop(_EagerLoop):
         if graph is None:
             graph = self._captured[name] = self._capture(name)
         graph.replay()
-        self.graphs.replays += 1
-        self.graphs.by_program[name]["replays"] += 1
+        self.graphs._count(name, "replays")
+
+    def run_while(self, name: str, flag: str) -> None:
+        loop = self._loops.get((name, flag))
+        if loop is None:
+            body = self._captured.get(name)
+            if body is None:
+                body = self._captured[name] = self._capture(name, True)
+            loop = self._loops[(name, flag)] = _WhileLoop(
+                body, self.state[flag], f"{self.graphs.name}.{name}",
+                self.key)
+        loop.launch(self.device)
+        self.graphs._count(name, "replays")
+
+    def put(self, **tensors) -> None:
+        for n, t in tensors.items():
+            if n in self.state:
+                self.state[n].copy_(t)
+            else:
+                self.state[n] = t.clone()
 
     def take(self, *names):
         return tuple(self.state[n].clone() for n in names)
 
-    def _capture(self, name):
+    def _capture(self, name, keep_graph=False):
         fn = self.graphs.programs[name]
 
         def warm():
@@ -332,8 +406,42 @@ class _GraphLoop(_EagerLoop):
                 self.state[n].copy_(o)
 
         graph, _, grown = _capture_in_pool(
-            self.device, f"{self.graphs.name}.{name}", self.key, warm, body)
-        self.graphs.captures += 1
-        self.graphs.by_program[name]["captures"] += 1
-        self.graphs.pool_bytes += grown
+            self.device, f"{self.graphs.name}.{name}", self.key, warm, body,
+            keep_graph)
+        self.graphs._count(name, "captures", grown)
         return graph
+
+
+class _WhileLoop:
+    """A captured program as the body of a conditional WHILE node
+    (``csrc/graph_while.cu``): one launch repeats it while ``flag`` (a
+    0-d bool CUDA tensor the program writes) is set. Keeps the body's
+    capture alive (its graph is embedded by copy, its tensors are the
+    capture's)."""
+
+    def __init__(self, body: torch.cuda.CUDAGraph, flag: torch.Tensor,
+                 label: str, key):
+        import ctypes
+
+        from cslam_tpu_torch.ops.nns import _lib_fn
+        if flag.dtype != torch.bool or flag.numel() != 1 or not flag.is_cuda:
+            raise ValueError(f"{label}: a while loop's flag is a 0-d bool "
+                             f"CUDA tensor, not {flag.dtype} "
+                             f"{tuple(flag.shape)}")
+        self.body, self.flag = body, flag
+        handle = ctypes.c_void_p()
+        graphs = (ctypes.c_void_p * 1)(body.raw_cuda_graph())
+        rc = _lib_fn("graph_while", "cslam_while_create")(
+            graphs, 1, flag.data_ptr(), ctypes.byref(handle))
+        if rc != 0:
+            raise RuntimeError(f"{label}: building the CUDA graph while "
+                               f"loop failed for key {key}: cudaError {rc}")
+        self._handle = handle
+
+    def launch(self, device) -> None:
+        from cslam_tpu_torch.ops.nns import _lib_fn
+        rc = _lib_fn("graph_while", "cslam_while_launch")(
+            self._handle, torch.cuda.current_stream(device).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"CUDA graph while loop launch failed: "
+                               f"cudaError {rc}")

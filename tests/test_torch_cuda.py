@@ -397,3 +397,222 @@ def test_graphed_batched_lm_matches_eager_on_card():
     assert float((graphed - eager).abs().max()) <= 2e-3
     assert float((graphed - local.poses).abs().max()) > 1e-2
     assert distributed.BATCHED_GRAPHS.captures >= 2
+
+
+def _symmetric_cases(rng):
+    """Random symmetric float32 matrices, n = 1 .. 16, with spread,
+    clustered and repeated eigenvalues, and LOBPCG-like Gram matrices."""
+    out = []
+    for n in (1, 2, 4, 7, 12, 16):
+        Q, _ = np.linalg.qr(rng.standard_normal((n, n)))
+        for lam in (rng.standard_normal(n) * 10.0,
+                    1.0 + 1e-4 * rng.standard_normal(n),
+                    np.repeat([3.0, -1.0], (n + 1) // 2)[:n],
+                    np.logspace(-6, 5, n)):
+            out.append(((Q * lam) @ Q.T).astype(np.float32))
+    return out
+
+
+@pytest.mark.cuda
+def test_small_eigh_matches_plain_version_on_card():
+    """The Jacobi kernel against ``torch.linalg.eigh`` on the card:
+    eigenvalues within 16 float32 eps of max |lambda|, eigenvectors
+    |<v, v_plain>| >= 1 - 1e-4 where the gap to the neighbours is at least
+    1e-3 of max |lambda|, V orthonormal, its sign rule, and NaN for a NaN
+    input; one launch per call, counted by the wrapper and on the
+    device."""
+    from cslam_tpu_torch.ops import small_linalg as sl
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    rng = np.random.default_rng(5)
+    sl.reset_launches()
+    calls = 0
+    for a in _symmetric_cases(rng):
+        A = torch.from_numpy(a).cuda()
+        w, V = sl.eigh_descending(A)
+        calls += 1
+        wr, Vr = sl.eigh_descending_ref(A)
+        scale = float(wr.abs().max()) or 1.0
+        eps = float(torch.finfo(torch.float32).eps)
+        assert float((w - wr).abs().max()) <= 16 * eps * scale
+        n = a.shape[0]
+        assert torch.allclose(V.T @ V, torch.eye(n, device="cuda"),
+                              atol=1e-5)
+        idx = V.abs().argmax(dim=0)
+        assert bool((V[idx, torch.arange(n)] > 0).all())
+        for j in range(n):
+            gaps = [abs(float(wr[j] - wr[i])) for i in (j - 1, j + 1)
+                    if 0 <= i < n]
+            if all(g >= 1e-3 * scale for g in gaps):
+                assert abs(float(V[:, j] @ Vr[:, j])) >= 1 - 1e-4
+    batch = torch.from_numpy(np.stack(_symmetric_cases(rng)[4:8])).cuda()
+    w, V = sl.eigh_descending(batch)
+    calls += 1
+    wr, _ = sl.eigh_descending_ref(batch)
+    assert float((w - wr).abs().max()) <= 16 * eps * float(wr.abs().max())
+    bad = torch.eye(4, device="cuda")
+    bad[2, 1] = float("nan")
+    w, V = sl.eigh_descending(bad)
+    calls += 1
+    assert bool(w.isnan().all()) and bool(V.isnan().all())
+    assert sl.eigh_launches == calls
+    assert sl.device_launch_counts()["eigh"] == calls
+
+
+@pytest.mark.cuda
+def test_small_svd_matches_plain_version_on_card():
+    """The one-sided Jacobi SVD against ``torch.linalg.svd`` on the card:
+    singular values within 16 float32 eps of the largest, the product
+    U diag(S) Vh and the polar factor U Vh (what LOBPCG's basis extension
+    uses) within 1e-5, U and Vh orthonormal, also for a rank-deficient
+    block."""
+    from cslam_tpu_torch.ops import small_linalg as sl
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    rng = np.random.default_rng(6)
+    eps = float(torch.finfo(torch.float32).eps)
+    cases = [rng.standard_normal((n, n)).astype(np.float32)
+             for n in (1, 2, 4, 9, 16)]
+    X, _ = np.linalg.qr(rng.standard_normal((200, 4)))
+    cases.append(X[:4].astype(np.float32))     # _extend_basis's Xupper
+    low = rng.standard_normal((4, 4)).astype(np.float32)
+    low[:, 3] = 0.0
+    cases.append(low)
+    for a in cases:
+        A = torch.from_numpy(a).cuda()
+        U, S, Vh = sl.svd(A)
+        Ur, Sr, Vhr = sl.svd_ref(A)
+        n = a.shape[0]
+        assert float((S - Sr).abs().max()) <= 16 * eps * float(Sr.max())
+        assert torch.allclose((U * S) @ Vh, A, atol=1e-5)
+        eye = torch.eye(n, device="cuda")
+        assert torch.allclose(U.T @ U, eye, atol=1e-5)
+        assert torch.allclose(Vh @ Vh.T, eye, atol=1e-5)
+        if float(Sr.min()) > 1e-3:
+            assert torch.allclose(U @ Vh, Ur @ Vhr, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_step_graphs_while_loop_stops_on_device():
+    """``StepGraphs.run_while``: one launch repeats a captured program
+    while its flag is set, with no iteration past the stop, and a second
+    launch with new operands does the same; equal to the eager loop."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (a CUDA graph has no CPU mode)")
+    from cslam_tpu_torch.utils.tier_graphs import StepGraphs
+
+    def init(s, o):
+        zero = torch.zeros((), dtype=torch.int32, device=o["n"].device)
+        return {"i": zero, "acc": zero.clone().float(),
+                "go": o["n"] > 0}
+
+    def step(s, o):
+        i = s["i"] + s["go"].to(torch.int32)
+        acc = torch.where(s["go"], s["acc"] + 0.5 * i, s["acc"])
+        return {"i": i, "acc": acc, "go": s["go"] & (i < o["n"])}
+
+    graphs = StepGraphs("while_test", {"init": init, "step": step})
+    for n in (7, 0, 3):
+        out = {}
+        for eager in (False, True):
+            with graphs.solve("cuda", {"n": torch.tensor(
+                    n, dtype=torch.int32, device="cuda")},
+                    eager=eager) as loop:
+                loop.run("init")
+                loop.run_while("step", "go")
+                out[eager] = [t.item() for t in loop.take("i", "acc")]
+        assert out[False] == out[True] == [n, 0.25 * n * (n + 1)]
+    assert graphs.by_program["step"]["captures"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("poses", [200, 60])
+def test_graphed_mac_selection_matches_eager_on_card(poses):
+    """MAC's FW loop replayed from its captured programs (Woodbury tier at
+    3 x 200 poses, dense at 3 x 60) against the same programs launched
+    one by one: the same selection and FW iterations, the relaxed iterate
+    within 1e-4 and the dual bound within 1e-3 relative (cuBLAS may pick
+    other kernels for a capture than for an eager call, and LOBPCG's
+    float32 stop test is at rounding level); two graphed runs bit for bit
+    alike. Host reads: one status per FW iteration plus the last (dense:
+    plus each evaluation's eager eigensolve); the Woodbury tier's LOBPCG
+    runs through the small-eigensolver kernels."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from cslam_tpu_torch.ops import small_linalg
+    from cslam_tpu_torch.selection.mac import MAC, mac_kwargs_from_params
+    n, fixed, cands = _slam_mac_inputs(poses=poses)
+    kw = mac_kwargs_from_params({})
+    w0 = np.zeros(len(cands))
+    w0[:5] = 1.0
+    out = {}
+    for eager in (True, False, False):
+        mac = MAC(fixed, cands, n, device="cuda", **kw)
+        small_linalg.reset_launches()
+        sel, w, dual = mac.fw_subset(w0, 5, max_iters=20, eager=eager)
+        loop = dict(mac.last_loop)
+        out.setdefault(eager, []).append(
+            (sel, w, dual, loop, small_linalg.device_launch_counts()))
+    (sel_e, w_e, dual_e, loop_e, _), = out[True]
+    (sel_a, w_a, dual_a, loop_a, _), (sel_b, w_b, dual_b, loop_b, _) = \
+        out[False]
+    np.testing.assert_array_equal(w_a, w_b)
+    assert dual_a == dual_b and loop_a == loop_b
+    for sel, w, dual, loop, launches in out[False]:
+        np.testing.assert_array_equal(sel, sel_e)
+        assert loop["it"] == loop_e["it"]
+        np.testing.assert_allclose(w, w_e, atol=1e-4)
+        assert dual == pytest.approx(dual_e, rel=1e-3)
+        if mac._dense:
+            assert loop["host_reads"] <= 3 * loop["it"] + 1
+        else:
+            assert loop["host_reads"] <= loop["it"] + 1
+            assert loop["lobpcg_iters"] > 0 and loop["lobpcg_masked"] == 0
+            assert launches["eigh"] > 0 and launches["svd"] > 0
+
+
+@pytest.mark.cuda
+def test_no_selection_capture_after_warmup_on_card():
+    """``warmup_selection_tiers`` captures every program a selection of
+    the warmed tiers replays: selections at P = 512 (dense) and 1024
+    (Woodbury) after it capture nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from cslam_tpu_torch.selection import mac as mac_mod
+    kw = mac_mod.mac_kwargs_from_params({"frontend.mac_p_floor": 512})
+    mac_mod.warmup_selection_tiers(600, 60, device="cuda", **kw)
+    graphs = (mac_mod.DENSE_FW_GRAPHS, mac_mod.WOODBURY_FW_GRAPHS)
+    before = [g.captures for g in graphs]
+    for poses in (150, 200):
+        n, fixed, cands = _slam_mac_inputs(poses=poses)
+        m = mac_mod.MAC(fixed, cands, n, device="cuda", **kw)
+        m.fw_subset(np.zeros(len(cands)), 5, max_iters=20)
+    assert [g.captures for g in graphs] == before
+
+
+@pytest.mark.cuda
+def test_selection_prefetch_captures_in_a_thread_on_card():
+    """ACM's tier prefetch (``prefetch_selection_tier_async``) captures a
+    new tier's programs in its own thread (``thread_local`` capture mode,
+    under the program set's lock); a selection of that tier afterwards
+    captures nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import threading
+
+    from cslam_tpu_torch.selection import mac as mac_mod
+    kw = mac_mod.mac_kwargs_from_params({"frontend.mac_p_floor": 2048})
+    n, fixed, cands = _slam_mac_inputs(poses=300)
+    before = mac_mod.WOODBURY_FW_GRAPHS.captures
+    mac_mod.prefetch_selection_tier_async(n, len(cands), 1, device="cuda",
+                                          **kw)
+    for t in threading.enumerate():
+        if t.name.startswith("mac-prefetch-"):
+            t.join(timeout=300)
+            assert not t.is_alive()
+    captured = mac_mod.WOODBURY_FW_GRAPHS.captures
+    assert captured > before
+    m = mac_mod.MAC(fixed, cands, n, device="cuda", **kw)
+    assert m._P == 2048
+    m.fw_subset(np.zeros(len(cands)), 5, max_iters=20)
+    assert mac_mod.WOODBURY_FW_GRAPHS.captures == captured

@@ -134,3 +134,87 @@ def test_backend_warmup_covers_a_swarms_solves():
     sim.run(20.0, dt=0.25)
     assert sum(r.backend.optimization_count for r in sim.robots) >= 2
     assert set(solver.DENSE_GRAPHS.keys) == warmed
+
+
+def test_backend_warmup_covers_solves_with_a_non_power_of_two_edge_floor():
+    """The back end's warmup with ``backend.pgo_ne_floor`` not a power of
+    two (48: solves pad their edges to 48, 96, 192, ...), then the same
+    2 x 20 swarm: every LM step program key was warmed (no capture
+    mid-mission on the card)."""
+    from cslam_tpu_torch.pgo import solver
+    from cslam_tpu_torch.runtime.simulator import (SwarmSimulator,
+                                                   SyntheticWorld,
+                                                   circle_trajectory)
+    world = SyntheticWorld(nb_places=40, descriptor_dim=32, seed=0)
+    trajs = [circle_trajectory(20, radius=10.0 + 0.3 * r, nb_places=40,
+                               start_angle=0.05 * r, z=0.2 * r)
+             for r in range(2)]
+    sim = SwarmSimulator(2, world, trajs, config_overrides={
+        "frontend.inter_robot_detection_period_sec": 3.0,
+        "frontend.inter_robot_loop_closure_budget": 5,
+        "backend.pose_graph_optimization_start_period_ms": 2000,
+        "backend.pgo_np_floor": 64, "backend.pgo_ne_floor": 48,
+        "backend.warmup_poses": 64, "backend.warmup_edges": 128},
+        keyframe_period=0.5, device="cpu")
+    warmed = set(solver.DENSE_GRAPHS.keys)
+    sim.run(20.0, dt=0.25)
+    assert sum(r.backend.optimization_count for r in sim.robots) >= 2
+    assert set(solver.DENSE_GRAPHS.keys) == warmed
+
+
+@pytest.mark.parametrize("floors,graph,tier", [
+    ((1024, 1536), (2048, 3000), (2048, 3072)),
+    ((4096, 3000), (4096, 6000), (4096, 6000)),
+    ((64, 128), (64, 128), (64, 128)),
+    # mid-mission: a pose tier above the floor with fewer edges than poses
+    ((1024, 1536), (1100, 1200), (2048, 1536)),
+    ((1024, 1024), (1025, 1024), (2048, 1024)),
+])
+def test_backend_warmup_grid_holds_the_tier_a_solve_pads_to(floors, graph,
+                                                            tier):
+    """``DecentralizedPGO.warmup_tier_grid`` for a mission of ``graph``
+    (poses, edges) under the floors (``pgo_np_floor``, ``pgo_ne_floor``)
+    holds the tier the factor graph pads that graph to."""
+    from cslam_tpu_torch.pgo.factor_graph import FactorGraph
+    from cslam_tpu_torch.runtime.backend_node import DecentralizedPGO
+    poses, edges = graph
+    fg = FactorGraph()
+    for k in range(poses):
+        fg.add_variable((0, k), np.eye(4))
+    for e in range(edges):
+        fg.add_between((0, e % (poses - 1)), (0, e % (poses - 1) + 1),
+                       np.eye(4), np.ones(6))
+    arrays = fg.to_arrays(np_floor=floors[0], ne_floor=floors[1],
+                          device="cpu")
+    assert (arrays.num_nodes, arrays.num_edges) == tier
+    node = DecentralizedPGO.__new__(DecentralizedPGO)
+    node._np_floor, node._ne_floor = floors
+    assert tier in node.warmup_tier_grid(poses, edges)
+
+
+@pytest.mark.parametrize("p_floor", [64, 1024])
+def test_selection_warmup_covers_acm_selections(p_floor):
+    """``warmup_selection_tiers`` (the config-default kwargs with the
+    deployment's floors), then ACM selections of a 3-robot graph on the
+    dense tiers (``p_floor`` 64) and on the Woodbury tier (1024): MAC's
+    Frank-Wolfe programs see no key the warmup did not, so on the card no
+    selection pays a capture."""
+    from helpers import all_considered, multi_robot_graph
+
+    from cslam_tpu_torch import types as ttypes
+    from cslam_tpu_torch.selection import acm as tacm
+    from cslam_tpu_torch.selection import mac as tmac
+    params = {"frontend.mac_p_floor": p_floor, "frontend.mac_e_floor": 256,
+              "frontend.mac_mf_floor": 64}
+    tmac.warmup_selection_tiers(3 * 30, 100, device="cpu",
+                                **tmac.mac_kwargs_from_params(params))
+    graphs = (tmac.DENSE_FW_GRAPHS, tmac.WOODBURY_FW_GRAPHS)
+    warmed = [set(g.keys) for g in graphs]
+    fixed, cands = multi_robot_graph(30, 40, 3, seed=2)
+    acm = tacm.AlgebraicConnectivityMaximization(0, 3, extra_params=params,
+                                                 device="cpu")
+    acm.set_graph([ttypes.EdgeInterRobot(*e) for e in fixed],
+                  [ttypes.EdgeInterRobot(*e) for e in cands])
+    assert len(acm.select_candidates(4, all_considered(3))) > 0
+    assert [set(g.keys) for g in graphs] == warmed
+    assert warmed[p_floor == 1024]
