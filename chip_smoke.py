@@ -49,7 +49,9 @@ Builds the hand-written kernels from the sources in the checkout (one
   kernels (``csrc/small_eigh.cu``) against ``torch.linalg.eigh`` / ``svd``
   on the Rayleigh-Ritz, SVQB and basis-extension matrices of a real P =
   8192 evaluation and on random symmetric matrices with clustered and
-  repeated eigenvalues, with their times beside the library calls';
+  repeated eigenvalues, the parallel-order eigh also bit for bit against
+  ``small_linalg.eigh_jacobi_ref``, with their times beside the library
+  calls';
   GNC-TLS cold (first with the tier's captures, then again) and warm on
   ``benchmarks/graphs``' 8 x 256 and 8 x 512 graphs (both outliers
   rejected, ATE within 0.05 m of the reference's ``*_optimized.g2o``),
@@ -158,11 +160,28 @@ Builds the hand-written kernels from the sources in the checkout (one
   (P, E) = (1024, 1024), (1024, 4096), (8192, 1024): the while loop and
   its body replayed until the host reads the stop flag clear stop at the
   same iteration with Ritz values within 4 float32 eps of max |theta|
-  (the same kernels; eager's are printed); where the host's
+  (the same kernels; eager's are printed); the same stage as it ran with
+  two triangular solves per apply (before), the apply against
+  ``fiedler.woodbury_inverse_ref`` within 32 float32 eps of max |Tinv x|,
+  no ``trsm`` in the body, state and pool bytes; where the host's
   time goes in a graphed selection at P = 512, 1024, 8192, and the device
   ms and kernels of one replay of each selection program. Its first part
   runs in an older checkout too (copy this file there and pass
   ``--phases mac_calls``).
+
+Not in the default run: phase ``mac_replay`` records every MAC selection of
+the ``swarm_floored`` mission (its inputs, in memory), then replays them,
+graphed, in fresh processes through the ``cslam_tpu_torch`` of each tree
+given by ``--replay-roots`` (default: this checkout) in the order a, b,
+b, a, each time twice graphed and once eagerly, and reports per tree the
+FW iterations, LOBPCG calls and ``mac.fw_dispatch`` seconds on the same
+inputs, and per selection whether two replays (the trees, or one tree
+graphed and eager) pick the same edges and the exact lambda_2 (float64,
+dense) of each selected graph; a tree whose graphed runs disagree fails
+it. To hold
+this checkout against another on the same card:
+
+    python3 chip_smoke.py --phases mac_replay --replay-roots OTHER,.
 
 Every kernel's launch counter is set to 0 just before each main-path run and
 read just after; a kernel that did not launch fails the run. The missions
@@ -175,11 +194,14 @@ without the last line. Imports only the port, never JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import functools
 import json
 import struct
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 # H100 SXM published peaks (dense): memory bytes/s; FLOP/s of the tensor
 # cores by the screen's input type (an f32 bank is screened in TF32, a bf16
@@ -995,8 +1017,6 @@ def _mac_graphed_vs_eager(mac, seen, max_iters, failures, tag):
     the captured ones, so LOBPCG's own threshold decisions, its
     convergence test and the residual gate, may fall otherwise: its
     counts are printed). Host reads within their bound; times of each."""
-    import contextlib
-
     import numpy as np
     out = {}
     runs = [("graphed", False, contextlib.nullcontext)]
@@ -1073,14 +1093,30 @@ _EIGVEC_TOL = 1e-4
 _EIGVEC_GAP = 1e-3
 
 
+def _eigh_kernel_ops(n: int, sweeps: int) -> float:
+    """A diagnostic, not a bound: the eigh kernel's own float64 operations
+    on one ``n x n`` matrix that rotated ``sweeps`` sweeps
+    (``csrc/small_eigh.cu``): per sweep N - 1 steps (N = n rounded up to
+    even), each N/2 rotations of about 16 operations and N^2 entries of A
+    (4 coefficient products, 4 products, 3 sums) and of V (2 products, 1
+    sum); the off-norm test, 2 N^2 per sweep, once more at the end."""
+    N = n + n % 2
+    return float(sweeps * (N - 1) * (N // 2 * 16 + N * N * 14)
+                 + (sweeps + 1) * 2 * N * N)
+
+
 def _small_linalg_checks(mac, rounded, failures):
     """The small-eigensolver kernels against their plain versions on the
     card: on the Rayleigh-Ritz (12 x 12) and SVQB (4 x 4) matrices and the
     basis-extension blocks (4 x 4 SVD) of one real Woodbury evaluation of
     ``mac`` (recorded from its eager run), and on random symmetric
-    matrices with clustered and repeated eigenvalues; then their times,
-    the plain versions' and the library calls' (``torch.linalg.eigh`` /
-    ``svd``), CUDA events, at batch 1."""
+    matrices with clustered and repeated eigenvalues. The eigh kernel is
+    held bit for bit against ``eigh_jacobi_ref`` (its arithmetic in torch
+    float64, run on the CPU copy of the same input; it also gives the
+    sweeps each matrix took) and within the limits below against
+    ``torch.linalg.eigh``. Then the times of the kernels, the plain
+    versions and the library calls (``torch.linalg.eigh`` / ``svd``),
+    CUDA events, at batch 1; the eigh bounds count this run's sweeps."""
     import numpy as np
     import torch
 
@@ -1106,13 +1142,25 @@ def _small_linalg_checks(mac, rounded, failures):
              "random": [torch.from_numpy(a).cuda()
                         for a in _symmetric_cases(rng)]}
     eps = float(torch.finfo(torch.float32).eps)
-    out = {}
+    # an older checkout has no mirror: its fields are then null, not a pass
+    has_mirror = hasattr(sl, "eigh_jacobi_ref")
+    out, sweeps_of = {}, {}
     for name, mats in cases.items():
-        val_err = worst_val = 0.0
-        vec_min, n_vec = 1.0, 0
+        val_err = worst_val = mirror_err = 0.0
+        vec_min, n_vec, mismatches, sweeps = 1.0, 0, 0, []
         for A in mats:
             w, V = sl.eigh_descending(A)
             wr, Vr = sl.eigh_descending_ref(A)
+            if has_mirror:
+                wm, Vm, sw = sl.eigh_jacobi_ref(A.cpu(), return_sweeps=True)
+                sweeps.append(int(sw))
+                sweeps_of[id(A)] = int(sw)
+            if has_mirror and not (torch.equal(w.cpu(), wm)
+                                   and torch.equal(V.cpu(), Vm)):
+                mismatches += 1
+                mirror_err = max(mirror_err,
+                                 float((w.cpu() - wm).abs().max()),
+                                 float((V.cpu() - Vm).abs().max()))
             scale = max(float(wr.abs().max()), 1e-30)
             err = float((w - wr).abs().max())
             worst_val = max(worst_val, err / (eps * scale))
@@ -1126,9 +1174,19 @@ def _small_linalg_checks(mac, rounded, failures):
                     n_vec += 1
         out[name] = {"matrices": len(mats), "max_abs_err": val_err,
                      "max_err_in_eps_of_max_lambda": worst_val,
-                     "min_vector_overlap": vec_min, "vectors_held": n_vec}
+                     "min_vector_overlap": vec_min, "vectors_held": n_vec,
+                     "mirror_mismatches": mismatches if has_mirror else None,
+                     "mirror_max_abs_err": mirror_err if has_mirror else None,
+                     "sweeps": [min(sweeps), max(sweeps)] if sweeps else None,
+                     "sweeps_mean": (sum(sweeps) / len(sweeps)
+                                     if sweeps else None)}
         if worst_val > _EIGVAL_EPS or vec_min < 1.0 - _EIGVEC_TOL:
             failures.append(f"small eigh on {name}: {out[name]}")
+        # the same arithmetic in IEEE float64 on both sides: no limit
+        if mismatches:
+            failures.append(f"small eigh on {name}: {mismatches} of "
+                            f"{len(mats)} matrices differ from "
+                            f"eigh_jacobi_ref, by up to {mirror_err}")
     svd_err = svd_rel = polar_err = 0.0
     svd_cases = svd_in[:64] + [torch.from_numpy(
         rng.standard_normal((4, 4)).astype(np.float32)).cuda()
@@ -1159,19 +1217,111 @@ def _small_linalg_checks(mac, rounded, failures):
             ("eigh12_plain", lambda: sl.eigh_descending_ref(A12)),
             ("eigh12_library", lambda: torch.linalg.eigh(A12)),
             ("eigh4", lambda: sl.eigh_descending(A4)),
+            ("eigh4_plain", lambda: sl.eigh_descending_ref(A4)),
             ("eigh4_library", lambda: torch.linalg.eigh(A4)),
             ("svd4", lambda: sl.svd(B4)),
             ("svd4_plain", lambda: sl.svd_ref(B4)),
             ("svd4_library", lambda: torch.linalg.svd(B4))):
         times[label] = _time_ms(fn, 200)
     out["times_ms"] = times
+    # the kernels' own device time per call (the eager calls above are
+    # host-bound below about 0.05 ms)
+    out["device_ms"] = {label: _device_profile(fn, 50).get("device_ms")
+                        for label, fn in (
+                            ("eigh12", lambda: sl.eigh_descending(A12)),
+                            ("eigh4", lambda: sl.eigh_descending(A4)),
+                            ("svd4", lambda: sl.svd(B4)))}
     # bytes: the matrix read once, the outputs written once; operations:
     # 9 n^3, the usual count of a symmetric eigendecomposition with its
-    # vectors (an SVD: 14 n^3 at this size), at the FP32 rate
+    # vectors (an SVD: 14 n^3 at this size), at the FP32 rate (float32 in
+    # and out). The kernel's own float64 work at this run's sweeps is a
+    # separate diagnostic (null without the mirror that counts the sweeps)
     out["eigh12_bound"] = _bound(9 * 12 ** 3, 4 * (2 * 144 + 12), "fp32")
+    out["eigh4_bound"] = _bound(9 * 4 ** 3, 4 * (2 * 16 + 4), "fp32")
+    for n, A in ((12, A12), (4, A4)):
+        sw = sweeps_of.get(id(A))
+        out[f"eigh{n}_kernel_work"] = {
+            "sweeps": sw,
+            "fp64_ops": None if sw is None else _eigh_kernel_ops(n, sw)}
     out["svd4_bound"] = _bound(14 * 4 ** 3, 4 * (3 * 16 + 4), "fp32")
     print("  small linalg " + json.dumps(out))
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def _ref_stage_programs():
+    """The Woodbury tier's first LOBPCG stage as it ran before the apply
+    lost its triangular solves: the setup keeps the capacitance factor
+    (not ``Z``) in the state, and each apply of the body runs
+    ``fiedler.woodbury_inverse_ref``'s two triangular solves. A
+    :class:`StepGraphs` of its own, so that ``--phases mac_calls`` times
+    the stage both ways in one call; ``None`` in a checkout without the
+    plain apply."""
+    import torch
+
+    from cslam_tpu_torch.ops import fiedler as fd
+    from cslam_tpu_torch.ops.lobpcg import lobpcg_init
+    from cslam_tpu_torch.selection import mac as mac_mod
+    from cslam_tpu_torch.utils.tier_graphs import StepGraphs
+    if not hasattr(fd, "woodbury_inverse_ref"):
+        return None
+
+    def apply(s, o):
+        return fd.woodbury_inverse_ref(o["Tinv"], o["U"], o["Y"], s["chol"])
+
+    def setup(s, o, warm_ritz=False, lobpcg_iters=48, short_iters=14, **_):
+        lr_w = torch.cat([o["lr_w_fixed"], s["w"] * o["cw"]])
+        chol = fd.woodbury_factor(o["G"], lr_w, o["cinv_sigma"])
+        st = lobpcg_init(apply({"chol": chol}, o),
+                         s["aux"] if warm_ritz else o["x0"],
+                         min(short_iters, lobpcg_iters), enabled=s["live"])
+        return {"lr_w": lr_w, "chol": chol,
+                **{"l" + k: v for k, v in st.items()}}
+
+    def body(s, o, block=1, **_):
+        return mac_mod._lobpcg_iterations(s, apply(s, o), block)
+    return StepGraphs("mac_woodbury_ref", {
+        "init": mac_mod._fw_init, "setup": setup, "lobpcg": body})
+
+
+#: the apply against its plain version: float32 eps of max |Tinv x| (both
+#: forms subtract terms of that size from each other; 5 measured on the
+#: CPU, tests/test_torch_small_linalg.py)
+_APPLY_EPS = 32
+
+
+def _apply_check(mac, loop, failures, tag) -> dict:
+    """The new apply against ``woodbury_inverse_ref`` on this stage's
+    operator (the factor of the state's weights) at 4 and 12 columns (the
+    applies LOBPCG makes), with the limit; each apply's CUDA-event time."""
+    import torch
+
+    from cslam_tpu_torch.ops import fiedler as fd
+    from cslam_tpu_torch.ops import highest_precision
+    pre = mac._pre
+    lr_w, = loop.take("lr_w")
+    chol = fd.woodbury_factor(pre["G"], lr_w, mac._cinv_sigma)
+    args = (pre["Tinv"], pre["U"], pre["Y"], chol)
+    new, ref = fd.woodbury_inverse(*args), fd.woodbury_inverse_ref(*args)
+    gen = torch.Generator("cuda").manual_seed(0)
+    eps = float(torch.finfo(torch.float32).eps)
+    rec = {}
+    for k in (4, 12):
+        x = torch.randn((mac._P, k), device="cuda", generator=gen)
+        a, b = highest_precision(lambda: (new(x), ref(x)))()
+        scale = float((pre["Tinv"] @ x).abs().max())
+        err = float((a - b).abs().max())
+        rec[f"k{k}"] = {
+            "max_abs_err": err, "err_in_eps_of_max_tinv_x": err / (
+                eps * scale),
+            "apply_ms": _time_ms(highest_precision(lambda: new(x)), 20),
+            "apply_ref_ms": _time_ms(highest_precision(lambda: ref(x)), 20)}
+        if not err <= _APPLY_EPS * eps * scale:
+            failures.append(f"{tag}: the apply and woodbury_inverse_ref "
+                            f"{err} apart at {k} columns, "
+                            f"{err / (eps * scale):.1f} eps of max "
+                            f"|Tinv x| (limit {_APPLY_EPS})")
+    return rec
 
 
 def _lobpcg_stage_times(mac, failures, reps=5):
@@ -1181,18 +1331,25 @@ def _lobpcg_stage_times(mac, failures, reps=5):
     replayed from the host until the host reads the stop flag clear (the
     while loop's plain version: the same graph, one read per iteration);
     the body replayed the known number of times with no read; and eagerly
-    (the programs launched one by one). CUDA-event ms, iterations, the
-    Ritz values' differences, the bound of the stage's bytes, and last the
+    (the programs launched one by one). Then the same stage as it ran
+    before the apply lost its triangular solves (:func:`_ref_stage_programs`,
+    its while loop), the apply against that plain one
+    (:func:`_apply_check`), and each form's state bytes (``Z`` or the
+    factor) and graph pool bytes. CUDA-event ms, iterations, the Ritz
+    values' differences, the bound of the stage's bytes, and last the
     device profile of the setup and the body replayed, with its triangular
-    solves' share (cuBLAS ``trsm`` kernels). Limits: the while loop and its plain
-    version stop at the same iteration with Ritz values within 4 float32
-    eps of max |theta| (the same kernels: they should agree bit for bit).
-    Eager's kernels differ, so its iterations and Ritz values are printed,
-    not held."""
+    solves' share (cuBLAS ``trsm`` kernels), overall and in the body alone.
+    Limits: the while loop and its plain version stop at the same
+    iteration with Ritz values within 4 float32 eps of max |theta| (the
+    same kernels: they should agree bit for bit). Eager's kernels differ,
+    and so do the older form's, so their iterations and Ritz values are
+    printed, not held."""
     import numpy as np
     import torch
 
+    from cslam_tpu_torch.ops import fiedler as fd
     from cslam_tpu_torch.selection import mac as mac_mod
+    from cslam_tpu_torch.utils import tier_graphs
     w0 = np.zeros(mac._E, np.float32)
     w0[:mac._m] = 0.3
     ops = mac._operands(w0, 5, 20, 1e-8)
@@ -1213,8 +1370,24 @@ def _lobpcg_stage_times(mac, failures, reps=5):
 
     def result(loop, ms):
         return ms, loop.take("ltheta")[0].clone(), int(loop.take("li")[0])
+
+    def profiles(loop, iters):
+        def replays():
+            for _ in range(iters):
+                loop.run("lobpcg")
+
+        def stage():
+            # the body replayed: the profiler does not see the kernels
+            # inside a WHILE node's body
+            loop.run("setup")
+            replays()
+        return replays, _device_profile(stage, 3), _device_profile(
+            replays, 3)
     static = mac._woodbury_static()
-    with mac_mod.WOODBURY_FW_GRAPHS.solve("cuda", ops, **static) as loop:
+    graphs = mac_mod.WOODBURY_FW_GRAPHS
+    pool0 = graphs.pool_bytes
+    tag = f"LOBPCG stage at (P, E) = ({mac._P}, {mac._E})"
+    with graphs.solve("cuda", ops, **static) as loop:
         loop.run("init")
         # the while loop first: it captures the body with its cudaGraph_t
         res["while"] = result(loop, timed(loop, lambda: loop.run_while(
@@ -1225,31 +1398,46 @@ def _lobpcg_stage_times(mac, failures, reps=5):
                 loop.run("lobpcg")
         res["host"] = result(loop, timed(loop, host_driven))
         iters = res["while"][2]
-
-        def replays():
-            for _ in range(iters):
-                loop.run("lobpcg")
+        replays, profile, body_profile = profiles(loop, iters)
         replayed_ms = timed(loop, replays)
-
-        def stage():
-            # the body replayed: the profiler does not see the kernels
-            # inside a WHILE node's body
-            loop.run("setup")
-            replays()
-        profile = _device_profile(stage, 3)
-    with mac_mod.WOODBURY_FW_GRAPHS.solve("cuda", ops, eager=True,
-                                          **static) as loop:
+        loop.run("setup")
+        apply = (_apply_check(mac, loop, failures, tag)
+                 if hasattr(fd, "woodbury_inverse_ref") else None)
+        z_bytes = (loop.state["Z"].numel() * 4 if "Z" in loop.state
+                   else None)
+    pool_bytes = graphs.pool_bytes - pool0
+    with graphs.solve("cuda", ops, eager=True, **static) as loop:
         loop.run("init")
         res["eager"] = result(loop, timed(loop, lambda: loop.run_while(
             "lobpcg", "lactive")))
+    ref, ref_graphs = None, _ref_stage_programs()
+    if ref_graphs is not None:
+        pool0 = ref_graphs.pool_bytes
+        # the plain apply also reads U, which the main path's loop lacks
+        with ref_graphs.solve("cuda", dict(ops, U=mac._pre["U"]),
+                              **static) as loop:
+            loop.run("init")
+            ms, theta_ref, it_ref = result(loop, timed(
+                loop, lambda: loop.run_while("lobpcg", "lactive")))
+            _, ref_profile, ref_body = profiles(loop, it_ref)
+            ref = {"ms": ms, "iterations": it_ref,
+                   "max_abs_err": float((res["while"][1]
+                                         - theta_ref).abs().max()),
+                   "chol_bytes": loop.state["chol"].numel() * 4,
+                   "pool_bytes": ref_graphs.pool_bytes - pool0,
+                   "profile": ref_profile,
+                   "body_trsm_ms": ref_body.get("trsm_kernel_ms"),
+                   "body_device_ms": ref_body.get("device_ms")}
     P, M1 = mac._P, mac._pre["U"].shape[1]
     eps = float(torch.finfo(torch.float32).eps)
     theta = res["while"][1]
     scale = eps * max(float(theta.abs().max()), 1e-30)
     err = float((theta - res["host"][1]).abs().max())
     err_eager = float((theta - res["eager"][1]).abs().max())
-    # each iteration applies B^-1 twice: Tinv, U, Y and the factor read
-    per_iter = 2 * 4 * (P * P + 2 * P * M1 + M1 * M1)
+    # each iteration applies B^-1 twice; each apply reads Tinv once and Z
+    # twice (the plain form: Tinv, U, Y and the factor)
+    per_iter = 2 * 4 * (P * P + 2 * P * M1)
+    per_iter_ref = 2 * 4 * (P * P + 2 * P * M1 + M1 * M1)
     rec = {"P": P, "E": mac._E, "M1": M1, "ms": res["while"][0],
            "plain_ms": res["host"][0], "body_replayed_ms": replayed_ms,
            "eager_ms": res["eager"][0],
@@ -1259,9 +1447,14 @@ def _lobpcg_stage_times(mac, failures, reps=5):
            "eager_max_abs_err": err_eager,
            "eager_err_in_eps_of_max_theta": err_eager / scale,
            **_bound(0.0, per_iter * res["while"][2], "fp32"),
-           "profile": profile}
+           "bound_ref_ms": _bound(0.0, per_iter_ref * res["while"][2],
+                                  "fp32")["bound_ms"],
+           "z_bytes": z_bytes, "pool_bytes": pool_bytes,
+           "shared_pool_bytes": tier_graphs.pool_bytes("cuda"),
+           "body_trsm_ms": body_profile.get("trsm_kernel_ms"),
+           "body_device_ms": body_profile.get("device_ms"),
+           "apply": apply, "before": ref, "profile": profile}
     print("  LOBPCG stage while loop " + json.dumps(rec))
-    tag = f"LOBPCG stage at (P, E) = ({P}, {mac._E})"
     if rec["iterations"][0] != rec["iterations"][1]:
         failures.append(f"{tag}: while loop and host-driven iterations "
                         f"{rec['iterations']}")
@@ -1270,6 +1463,9 @@ def _lobpcg_stage_times(mac, failures, reps=5):
                         f"host-driven stage {err} apart, "
                         f"{rec['max_err_in_eps_of_max_theta']:.1f} eps of "
                         f"max |theta| (limit 4)")
+    if z_bytes is not None and rec["body_trsm_ms"]:
+        failures.append(f"{tag}: {rec['body_trsm_ms']} ms of triangular "
+                        f"solves in the LOBPCG body")
     return rec
 
 
@@ -2188,10 +2384,12 @@ def _fixed(sim, rid=0):
                   sim.robots[rid].detection.lcm.candidate_selector.fixed_edges)
 
 
-def _swarm_run(name, failures, robots, keyframes, overrides=None):
+def _swarm_run(name, failures, robots, keyframes, overrides=None,
+               during=None):
     """One simulated mission of ``robots`` x ``keyframes`` on the card (the
-    main path), with ``overrides`` added to its config; checks robot 0's ATE
-    and fixed inter-robot edges and the bank scan's launches. Returns
+    main path), with ``overrides`` added to its config (and the context
+    ``during()`` around the mission, after the warmups); checks robot 0's
+    ATE and fixed inter-robot edges and the bank scan's launches. Returns
     (wall seconds, K1 launches, spans, per-robot records, the
     :class:`_Counters` of the mission, after the nodes' warmups)."""
     import torch
@@ -2233,7 +2431,7 @@ def _swarm_run(name, failures, robots, keyframes, overrides=None):
         return eigh(A, *args, **kwargs)
     torch.linalg.eigh = counted_eigh
     try:
-        with _Counters() as count:
+        with _Counters() as count, (during or contextlib.nullcontext)():
             t0 = time.perf_counter()
             sim.run(keyframes * 0.5 + 10.0, dt=0.25)   # the main path
             _sync()
@@ -2396,6 +2594,203 @@ def phase_swarm_floored(results, failures, robots=4, keyframes=120):
     results["swarm_floored"] = {"launches": launches, "wall_s": wall,
                                 "spans": spans, "robots": per_robot,
                                 **pgo, "mac": mac_rec}
+
+
+# -- phase mac_replay (not in the default run) -------------------------------
+
+#: the trees ``mac_replay`` replays in (``--replay-roots``)
+_REPLAY_ROOTS = ["."]
+
+
+def _record_selections(failures) -> list:
+    """The ``swarm_floored`` mission with every MAC selection's inputs
+    recorded (the constructor's and ``fw_subset_dispatch``'s arguments);
+    the warmups' and the tier prefetch threads' selections are not."""
+    import threading
+
+    import numpy as np
+
+    from cslam_tpu_torch.selection import mac as mac_mod
+    seen = []
+    init, dispatch = mac_mod.MAC.__init__, mac_mod.MAC.fw_subset_dispatch
+
+    def recorded_init(self, fixed, cands, nb_poses, *args, **kwargs):
+        self._recorded = {"fixed": list(fixed), "cands": list(cands),
+                          "nb_poses": nb_poses, "args": args,
+                          "kwargs": {k: v for k, v in kwargs.items()
+                                     if k != "device"}}
+        init(self, fixed, cands, nb_poses, *args, **kwargs)
+
+    def recorded_dispatch(self, w_init, k, *args, **kwargs):
+        if not threading.current_thread().name.startswith("mac-prefetch"):
+            seen.append(dict(self._recorded, w_init=np.array(w_init), k=k,
+                             call_args=args,
+                             call_kwargs={a: b for a, b in kwargs.items()
+                                          if a != "eager"}))
+        return dispatch(self, w_init, k, *args, **kwargs)
+
+    @contextlib.contextmanager
+    def recording():
+        mac_mod.MAC.__init__ = recorded_init
+        mac_mod.MAC.fw_subset_dispatch = recorded_dispatch
+        try:
+            yield
+        finally:
+            mac_mod.MAC.__init__ = init
+            mac_mod.MAC.fw_subset_dispatch = dispatch
+    _swarm_run("mac_replay", failures, 4, 120,
+               {"frontend.mac_p_floor": 1024, "backend.pgo_np_floor": 1024,
+                "backend.pgo_ne_floor": 1024, **_SWARM_WARMUP},
+               during=recording)
+    return seen
+
+
+def _replay_worker(inputs: str, out: str, root: str) -> int:
+    """One tree's replay (a process of its own): the recorded selections
+    through ``root``'s ``cslam_tpu_torch``, graphed, after the tiers'
+    warmup as the mission warms them; twice, the second pass timed by its
+    ``mac.fw_dispatch`` span; then once eagerly (the same step programs
+    launched one by one: other kernels, so other roundings). Writes per
+    selection the selected candidates, FW iterations and loop counts of
+    each pass."""
+    import pickle
+
+    import numpy as np
+    sys.path.insert(0, str(Path(root).resolve()))
+    import torch
+
+    from cslam_tpu_torch.ops import nns
+    from cslam_tpu_torch.selection import mac as mac_mod
+    from cslam_tpu_torch.utils import profiling
+    nns.build()
+    with open(inputs, "rb") as f:
+        recs = pickle.load(f)
+    config = {"frontend.mac_p_floor": 1024}
+    mac_mod.warmup_selection_tiers(2 * 480, 4096, device="cuda",
+                                   **mac_mod.mac_kwargs_from_params(config))
+    torch.cuda.synchronize()
+    passes = []
+    for eager in (False, False, True):
+        profiling.reset_spans()
+        sel = []
+        for rec in recs:
+            m = mac_mod.MAC(rec["fixed"], rec["cands"], rec["nb_poses"],
+                            *rec["args"], device="cuda", **rec["kwargs"])
+            try:
+                chosen = m.fw_subset(rec["w_init"], rec["k"],
+                                     *rec["call_args"], eager=eager,
+                                     **rec["call_kwargs"])[0]
+                picked = np.flatnonzero(chosen > 0.5).tolist()
+            except np.linalg.LinAlgError:
+                picked = None
+            sel.append({"selected": picked, "fw_iters": m.last_fw_iters,
+                        "lobpcg_calls": int(m.last_loop.get(
+                            "lobpcg_calls", -1))})
+        torch.cuda.synchronize()
+        span = profiling.spans().get("mac.fw_dispatch", {})
+        passes.append({"eager": eager, "selections": sel,
+                       "fw_dispatch_s": span.get("total_s")})
+    Path(out).write_text(json.dumps({
+        "root": str(Path(root).resolve()),
+        "module": mac_mod.__file__, "passes": passes}))
+    return 0
+
+
+def _lambda2(rec, selected):
+    """lambda_2 of the fixed edges plus the selected candidates, float64."""
+    import numpy as np
+    if selected is None:
+        return None
+    n = rec["nb_poses"]
+    L = np.zeros((n, n))
+    for e in rec["fixed"] + [rec["cands"][i] for i in selected]:
+        L[e.i, e.i] += e.weight
+        L[e.j, e.j] += e.weight
+        L[e.i, e.j] -= e.weight
+        L[e.j, e.i] -= e.weight
+    return float(np.linalg.eigvalsh(L)[1])
+
+
+def _compare_selections(recs, a, b) -> dict:
+    """Two replays of the same selections: how many pick the same edges and
+    take the same FW iterations, and the exact lambda_2 of each."""
+    rows = []
+    for rec, sa, sb in zip(recs, a, b):
+        la = _lambda2(rec, sa["selected"])
+        lb = _lambda2(rec, sb["selected"])
+        rows.append({
+            "same": sa["selected"] == sb["selected"],
+            "fw_iters": [sa["fw_iters"], sb["fw_iters"]],
+            "lobpcg_calls": [sa["lobpcg_calls"], sb["lobpcg_calls"]],
+            "lambda2": [la, lb],
+            "rel_diff": (None if la is None or lb is None else
+                         abs(la - lb) / max(la, lb, 1e-30))})
+    return {"same": sum(r["same"] for r in rows),
+            "same_fw_iters": sum(r["fw_iters"][0] == r["fw_iters"][1]
+                                 for r in rows),
+            "max_rel_diff_lambda2": max(
+                [r["rel_diff"] for r in rows if r["rel_diff"] is not None],
+                default=None),
+            "per_selection": rows}
+
+
+def phase_mac_replay(results, failures):
+    """Record ``swarm_floored``'s selections, replay them in each tree of
+    ``--replay-roots`` (a, b, b, a) and compare them (see the module's
+    docstring)."""
+    import pickle
+    import tempfile
+    recs = _record_selections(failures)
+    roots = list(dict.fromkeys(_REPLAY_ROOTS))
+    order = roots + roots[::-1]
+    runs = []
+    with tempfile.TemporaryDirectory(prefix="cslam_replay_") as tmp:
+        inputs = str(Path(tmp) / "inputs.pkl")
+        with open(inputs, "wb") as f:
+            pickle.dump(recs, f)
+        for n, root in enumerate(order):
+            out = str(Path(tmp) / f"{n}.json")
+            proc = subprocess.run(
+                [sys.executable, str(Path(__file__).resolve()),
+                 "--replay-worker", inputs, out, "--replay-roots", root],
+                capture_output=True, text=True, timeout=600)
+            if proc.returncode != 0:
+                failures.append(f"mac_replay: the replay in {root} failed: "
+                                f"{proc.stderr[-2000:]}")
+                return
+            runs.append(json.loads(Path(out).read_text()))
+    by_root = {}
+    for root, run in zip(order, runs):
+        by_root.setdefault(root, []).extend(run["passes"])
+    out = results["mac_replay"] = {"selections": len(recs), "trees": {}}
+    for root, passes in by_root.items():
+        graphed = [p for p in passes if not p["eager"]]
+        eager = [p for p in passes if p["eager"]]
+        differ = sum(any(p["selections"][i]["selected"]
+                         != graphed[0]["selections"][i]["selected"]
+                         for p in graphed) for i in range(len(recs)))
+        eager_vs_graphed = _compare_selections(
+            recs, graphed[0]["selections"], eager[0]["selections"])
+        out["trees"][root] = {
+            "module": next(r["module"] for o, r in zip(order, runs)
+                           if o == root),
+            "fw_dispatch_s_timed_passes": [p["fw_dispatch_s"]
+                                           for p in graphed[1::2]],
+            "fw_dispatch_s_eager": [p["fw_dispatch_s"] for p in eager],
+            "fw_iters": sum(s["fw_iters"] for s in
+                            graphed[1]["selections"]),
+            "lobpcg_calls": sum(s["lobpcg_calls"] for s in
+                                graphed[1]["selections"]),
+            "selections_differing_between_its_runs": differ,
+            "eager_vs_graphed": eager_vs_graphed}
+        if differ:
+            failures.append(f"mac_replay: {differ} selections differ "
+                            f"between {root}'s own graphed runs")
+    if len(roots) > 1:
+        a, b = (by_root[r][0]["selections"] for r in roots[:2])
+        out["pair"] = roots[:2]
+        out.update(_compare_selections(recs, a, b))
+    print("  mac_replay " + json.dumps(out))
 
 
 # -- phase lidar ------------------------------------------------------------
@@ -3932,14 +4327,23 @@ def main() -> int:
                 "frontend,lidar,visual,deploy,mac_calls",
         help="comma-separated subset of bank_scan,swarm,swarm_floored,"
              "large_tiers,distributed,frontend,lidar,visual,deploy,"
-             "mac_calls")
+             "mac_calls, or mac_replay (not in the default run)")
+    parser.add_argument(
+        "--replay-roots", default=".",
+        help="mac_replay: comma-separated trees whose cslam_tpu_torch "
+             "replays the recorded selections")
+    parser.add_argument("--replay-worker", nargs=2, metavar=("INPUTS", "OUT"),
+                        help=argparse.SUPPRESS)
     args = parser.parse_args()
     phases = args.phases.split(",")
+    _REPLAY_ROOTS[:] = args.replay_roots.split(",")
 
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if args.replay_worker:      # before this checkout's package is imported
+        return _replay_worker(*args.replay_worker, args.replay_roots)
     try:
         from cslam_tpu_torch.ops import nns
     except ImportError as exc:
@@ -3968,7 +4372,8 @@ def main() -> int:
              "lidar": phase_lidar,
              "visual": phase_visual,
              "deploy": phase_deploy,
-             "mac_calls": phase_mac_calls}[phase](results, failures)
+             "mac_calls": phase_mac_calls,
+             "mac_replay": phase_mac_replay}[phase](results, failures)
         except Exception as exc:  # noqa: BLE001 - report, then fail the run
             import traceback
             traceback.print_exc()
@@ -4052,6 +4457,10 @@ def main() -> int:
     def runs(kind):
         return sum(m.get("small_linalg_launches", {}).get(kind, 0)
                    for m in missions)
+    # null where the checkout has no mirror (nothing was held against it)
+    mirror_errs = [e for e in (sml.get(k, {}).get("mirror_max_abs_err")
+                               for k in ("rayleigh_ritz", "svqb", "random"))
+                   if e is not None]
     small_eigh = {
         "name": "small_eigh", "route": "cuda",
         "source": "cslam_tpu_torch/csrc/small_eigh.cu",
@@ -4061,13 +4470,20 @@ def main() -> int:
         "launches": runs("eigh"),
         "max_abs_err": max([sml.get(k, {}).get("max_abs_err", 0.0)
                             for k in ("rayleigh_ritz", "svqb", "random")]),
+        "max_abs_err_jacobi_ref": max(mirror_errs) if mirror_errs else None,
         "ms": times.get("eigh12"), "plain_ms": times.get("eigh12_plain"),
         "bound_ms": sml.get("eigh12_bound", {}).get("bound_ms"),
         "bound_by": sml.get("eigh12_bound", {}).get("bound_by"),
         "library_ms": times.get("eigh12_library"),
-        "shape": "12 x 12, batch 1 (Rayleigh-Ritz at block 4)",
-        "variants": {"4x4": {"ms": times.get("eigh4"),
-                             "library_ms": times.get("eigh4_library")}},
+        "shape": "12 x 12, batch 1 (Rayleigh-Ritz at block 4), sweeps of "
+                 "11 parallel steps",
+        "kernel_work": sml.get("eigh12_kernel_work"),
+        "variants": {"4x4": {
+            "ms": times.get("eigh4"), "plain_ms": times.get("eigh4_plain"),
+            "library_ms": times.get("eigh4_library"),
+            "bound_ms": sml.get("eigh4_bound", {}).get("bound_ms"),
+            "bound_by": sml.get("eigh4_bound", {}).get("bound_by"),
+            "kernel_work": sml.get("eigh4_kernel_work")}},
         "checks": {k: sml.get(k) for k in ("rayleigh_ritz", "svqb",
                                            "random")}}
     small_svd = {
@@ -4082,8 +4498,8 @@ def main() -> int:
         "bound_by": sml.get("svd4_bound", {}).get("bound_by"),
         "library_ms": times.get("svd4_library"),
         "shape": "4 x 4, batch 1", "checks": sml.get("svd")}
-    stage = max(results.get("mac_calls", {}).get("stages", []),
-                key=lambda r: r["P"], default={})
+    stages = results.get("mac_calls", {}).get("stages", [])
+    stage = max(stages, key=lambda r: r["P"], default={})
     graph_while = {
         "name": "graph_while", "route": "cuda",
         "source": "cslam_tpu_torch/csrc/graph_while.cu",
@@ -4095,7 +4511,16 @@ def main() -> int:
         "plain_ms": stage.get("plain_ms"), "bound_ms": stage.get("bound_ms"),
         "bound_by": stage.get("bound_by"), "library_ms": None,
         "shape": f"one LOBPCG stage at P = {stage.get('P')}, "
-                 f"{stage.get('iterations')} iterations (graphed, eager)"}
+                 f"{stage.get('iterations')} iterations (graphed, eager)",
+        "variants": {f"P{r['P']}_E{r['E']}": {
+            "ms": r.get("ms"), "bound_ms": r.get("bound_ms"),
+            "body_trsm_ms": r.get("body_trsm_ms"),
+            "ms_before": (r.get("before") or {}).get("ms"),
+            "bound_before_ms": r.get("bound_ref_ms"),
+            "apply_max_err_in_eps": max(
+                a["err_in_eps_of_max_tinv_x"]
+                for a in r.get("apply", {}).values())
+            if r.get("apply") else None} for r in stages}}
     print(json.dumps({"kernels": [kernel, tile, small_eigh, small_svd,
                                   graph_while]}))
     if failures:

@@ -29,32 +29,38 @@
 //   one following; a zero singular value's left vector is completed to an
 //   orthonormal U.
 //
-// Design: cyclic Jacobi in float64 (the inputs are float32; the H100's
-// FP64 rate makes double free at this size and leaves the eigenvalues
-// relatively accurate), one warp per matrix, the matrix and the rotations
-// in shared memory: eigh rotates rows and columns two sided, lane r owning
-// row r; the SVD is one-sided (Hestenes): lane r owns row r, and each pair
-// of columns is orthogonalized from three warp-shuffle sums. The
-// convergence test (off-diagonal norm below 1e-13 of the Frobenius norm;
-// for the SVD a sweep without a rotation) runs inside the kernel, capped
-// at 40 sweeps.
+// Design, eigh: two-sided Jacobi in float64 (the inputs are float32; the
+// H100's FP64 rate makes double free at this size and leaves the
+// eigenvalues relatively accurate) in a parallel (round-robin) order, one
+// warp per matrix. Lane r keeps row r of A and of V in registers; n <= 16
+// is rounded up to an even N (odd n: one dummy index) and each step
+// applies N/2 disjoint rotations at once. Each rotation's (c, s) is
+// computed once and broadcast by shuffle, the column updates are
+// lane-local and the row updates take the partner row by shuffle: no
+// shared memory and no __syncwarp inside a sweep. The steps are unrolled
+// over a compile-time N (one template per even size), so the register
+// arrays are indexed statically. The SVD is one-sided (Hestenes), still
+// in the cyclic order with the matrix in shared memory: lane r owns row
+// r, and each pair of columns is orthogonalized from three warp-shuffle
+// sums. The convergence test (off-diagonal norm below 1e-13 of the
+// Frobenius norm, each lane's row summed in column order and the lanes in
+// a shuffle tree; for the SVD a sweep without a rotation) runs inside the
+// kernel, capped at 40 sweeps. ops/small_linalg.eigh_jacobi_ref is the
+// eigh kernel's arithmetic in torch float64, bit for bit.
 //
-// What bounds it on an H100 SXM: the serial chain of rotations, not the
+// What bounds it on an H100 SXM: the chain of dependent steps, not the
 // card's rates and not the launch. Its work is a few thousand flops per
-// matrix and a few KB, but a 12 x 12 matrix takes 6-8 sweeps of 66
-// rotations applied one after another, and each rotation is a chain of
-// dependent float64 divisions and square roots (which every lane
-// recomputes), shared-memory round trips and two __syncwarp()s, built
-// with --fmad=false. chip_smoke.py measures 0.218 ms of device time per
-// 12 x 12 call on an H100 80GB HBM3 at 700 W, about 0.4 us per rotation;
-// the 4 x 4 call takes 0.017 ms. The loop around the kernel is replayed
-// from CUDA graphs, so its launches cost about a microsecond each. A
-// batch fills the card's SMs one warp per matrix, but LOBPCG's calls are
-// batch 1. The design that would shorten the chain (ROADMAP item 28): a
-// parallel round-robin ordering, n/2 disjoint rotations per step, one
-// lane pair each, with each rotation's parameters computed once and
-// broadcast by shuffle: n - 1 steps per sweep instead of n(n - 1)/2
-// rotations.
+// matrix and a few KB, but each sweep is N - 1 steps in a row (11 at n =
+// 12, 3 at n = 4), and each step is a chain of a few shuffles (a_qq, then
+// the pair's t, c, s to every lane), a float64 division and two square
+// roots with one more division (the rotation), then N independent
+// updates of a and v, built with --fmad=false. A 12 x 12 matrix from
+// LOBPCG takes 6-8 sweeps, 66-88 steps against the 396-528 rotations in a
+// row of a cyclic order. The loop around the kernel is replayed from
+// CUDA graphs, so its launches cost about a microsecond each. A batch
+// fills the card's SMs one warp per matrix, but LOBPCG's calls are batch
+// 1. The SVD's cyclic chain (n(n - 1)/2 rotations per sweep) is the next
+// to shorten the same way (ROADMAP).
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -104,82 +110,133 @@ __device__ double column_sign(double (*m)[kMaxN + 1], int n, int c) {
   return m[imax][c] < 0.0 ? -1.0 : 1.0;
 }
 
-__global__ void eigh_kernel(const float* __restrict__ A, float* __restrict__ w,
-                            float* __restrict__ V, int batch, int n,
-                            unsigned long long* count) {
+// Round-robin (circle) ordering of N indices, N even: step k (0 <= k <
+// N - 1) pairs N - 1 with k, and (k - i) mod (N - 1) with (k + i) mod
+// (N - 1) for i = 1 .. N/2 - 1. The N/2 pairs of a step are disjoint, and
+// the N - 1 steps of a sweep meet every pair once. partner(k, j) is j's
+// partner at step k.
+__host__ __device__ constexpr int rr_partner(int N, int k, int j) {
+  return j == N - 1 ? k : j == k ? N - 1 : (2 * k - j + (N - 1)) % (N - 1);
+}
+
+// Step K of a sweep in the lane that owns row `lane` of A (a, its diagonal
+// entry also in d) and of V (v). Lanes >= N hold zeros and partner
+// themselves. Each pair's rotation is computed once, by the lane of its
+// lower index p (a_qq by shuffle from lane q), and broadcast by shuffle;
+// a pair that holds the dummy index (n odd, index n) or has a_pq == 0
+// gets the identity (t = 0). With alpha_j, beta_j the coefficients of
+// column j and of its partner column jb in the rotated column j (p: c and
+// -s; q: c and s), row r and its partner row rb mix the same way, and
+// every new entry is
+//   A'[r][j] = (alpha_r alpha_j A[r][j] + beta_r beta_j A[rb][jb])
+//            + (alpha_r beta_j A[r][jb] + beta_r alpha_j A[rb][j]),
+// summed in that order, so that A' is exactly as symmetric as A (the
+// build has --fmad=false). Then each pair's diagonal gets the usual
+// a_pp - t a_pq, a_qq + t a_pq and its a_pq, a_qp exact zeros. V' = V J is
+// lane-local. ops/small_linalg.eigh_jacobi_ref does the same arithmetic.
+template <int N, int K>
+__device__ __forceinline__ void jacobi_step(int lane, int n, double (&a)[N],
+                                            double (&v)[N], double& d) {
+  constexpr int M = N - 1;
+  const int q = lane >= N ? lane : rr_partner(N, K, lane);
+  const bool low = lane < q;  // this lane owns the pair's row p
+  double apq = 0.0;
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+    if (j == q) apq = a[j];
+  const double aqq = __shfl_sync(0xffffffffu, d, q);
+  double t = 0.0;
+  if (low && q < n && apq != 0.0) t = rotation_tan(d, aqq, apq);
+  const double c = 1.0 / sqrt(t * t + 1.0), s = t * c;
+  const int lo = low ? lane : q;
+  const double tm = __shfl_sync(0xffffffffu, t, lo);
+  const double cm = __shfl_sync(0xffffffffu, c, lo);
+  const double sm = __shfl_sync(0xffffffffu, s, lo);
+  const double ar = cm, br = low ? -sm : sm;
+  double na[N], nv[N];
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) {
+    const int x = i == 0 ? K : (K - i + M) % M;
+    const int y = i == 0 ? M : (K + i) % M;
+    const int pp = x < y ? x : y, qq = x < y ? y : x;
+    const double cp = __shfl_sync(0xffffffffu, c, pp);
+    const double sp = __shfl_sync(0xffffffffu, s, pp);
+    const double bp = __shfl_sync(0xffffffffu, a[pp], q);
+    const double bq = __shfl_sync(0xffffffffu, a[qq], q);
+    // column pp: alpha cp, beta -sp, partner qq
+    na[pp] = ((ar * cp) * a[pp] + (br * -sp) * bq) +
+             ((ar * -sp) * a[qq] + (br * cp) * bp);
+    // column qq: alpha cp, beta sp, partner pp
+    na[qq] = ((ar * cp) * a[qq] + (br * sp) * bp) +
+             ((ar * sp) * a[pp] + (br * cp) * bq);
+    nv[pp] = cp * v[pp] + -sp * v[qq];
+    nv[qq] = cp * v[qq] + sp * v[pp];
+  }
+  const double dn = low ? d - tm * apq : d + tm * apq;
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    a[j] = j == lane ? dn : j == q ? 0.0 : na[j];
+    v[j] = nv[j];
+  }
+  d = dn;
+}
+
+template <int N, int K = 0>
+__device__ __forceinline__ void jacobi_sweep(int lane, int n, double (&a)[N],
+                                             double (&v)[N], double& d) {
+  if constexpr (K < N - 1) {
+    jacobi_step<N, K>(lane, n, a, v, d);
+    jacobi_sweep<N, K + 1>(lane, n, a, v, d);
+  }
+}
+
+// One warp per matrix; n <= N = n rounded up to even. Lane r holds row r
+// of A and of V in registers (indexed statically: the steps are unrolled
+// over the compile-time N).
+template <int N>
+__global__ void __launch_bounds__(32 * kWarps)
+    eigh_kernel(const float* __restrict__ A, float* __restrict__ w,
+                float* __restrict__ V, int batch, int n,
+                unsigned long long* count) {
   if (count != nullptr && blockIdx.x == 0 && threadIdx.x == 0)
     atomicAdd(count, 1ull);
-  __shared__ double sa[kWarps][kMaxN][kMaxN + 1];
-  __shared__ double sv[kWarps][kMaxN][kMaxN + 1];
-  __shared__ double sd[kWarps][kMaxN];
-  __shared__ int so[kWarps][kMaxN];
+  __shared__ double sv[kWarps][N][N + 1];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int b = blockIdx.x * kWarps + warp;
   if (b >= batch) return;  // the whole warp leaves together
-  double(*a)[kMaxN + 1] = sa[warp];
-  double(*v)[kMaxN + 1] = sv[warp];
   const float* Ab = A + static_cast<size_t>(b) * n * n;
 
+  double a[N], v[N];
   bool finite = true;
   double fro = 0.0;
-  for (int idx = lane; idx < n * n; idx += 32) {
-    const int i = idx / n, j = idx % n;
-    const float x = i >= j ? Ab[i * n + j] : Ab[j * n + i];
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    float x = 0.0f;
+    if (lane < n && j < n)
+      x = lane >= j ? Ab[lane * n + j] : Ab[j * n + lane];
     finite = finite && isfinite(x);
-    a[i][j] = x;
-    v[i][j] = i == j ? 1.0 : 0.0;
-    fro += static_cast<double>(x) * x;
+    a[j] = x;
+    v[j] = lane == j ? 1.0 : 0.0;
+    fro += a[j] * a[j];
   }
   finite = __all_sync(0xffffffffu, finite);
   fro = warp_sum(fro);
-  __syncwarp();
+  double d = 0.0;
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+    if (j == lane) d = a[j];
 
   bool converged = false;
   for (int sweep = 0; finite && sweep < kMaxSweeps; ++sweep) {
     double off = 0.0;
-    for (int idx = lane; idx < n * n; idx += 32) {
-      const int i = idx / n, j = idx % n;
-      if (i != j) off += a[i][j] * a[i][j];
-    }
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+      if (j != lane) off += a[j] * a[j];
     if (warp_sum(off) <= kOffTol * fro) {
       converged = true;
       break;
     }
-    for (int p = 0; p < n - 1; ++p) {
-      for (int q = p + 1; q < n; ++q) {
-        const double apq = a[p][q];
-        if (apq == 0.0) continue;  // the same shared value in every lane
-        const double app = a[p][p], aqq = a[q][q];
-        const double t = rotation_tan(app, aqq, apq);
-        const double c = 1.0 / sqrt(t * t + 1.0), s = t * c;
-        double arp = 0.0, arq = 0.0, vrp = 0.0, vrq = 0.0;
-        if (lane < n) {
-          arp = a[lane][p];
-          arq = a[lane][q];
-          vrp = v[lane][p];
-          vrq = v[lane][q];
-        }
-        __syncwarp();
-        if (lane < n) {
-          if (lane != p && lane != q) {
-            const double np = c * arp - s * arq, nq = s * arp + c * arq;
-            a[lane][p] = np;
-            a[p][lane] = np;
-            a[lane][q] = nq;
-            a[q][lane] = nq;
-          }
-          v[lane][p] = c * vrp - s * vrq;
-          v[lane][q] = s * vrp + c * vrq;
-        }
-        if (lane == 0) {
-          a[p][p] = app - t * apq;
-          a[q][q] = aqq + t * apq;
-          a[p][q] = 0.0;
-          a[q][p] = 0.0;
-        }
-        __syncwarp();
-      }
-    }
+    jacobi_sweep<N>(lane, n, a, v, d);
   }
 
   float* wb = w + static_cast<size_t>(b) * n;
@@ -189,16 +246,29 @@ __global__ void eigh_kernel(const float* __restrict__ A, float* __restrict__ w,
     if (lane < n) wb[lane] = nanf("");
     return;
   }
-  if (lane < n) sd[warp][lane] = a[lane][lane];
-  __syncwarp();
-  if (lane == 0) sort_descending(sd[warp], n, so[warp]);
+  double(*sm)[N + 1] = sv[warp];
+  if (lane < N) {
+#pragma unroll
+    for (int j = 0; j < N; ++j) sm[lane][j] = v[j];
+  }
+  // this lane's eigenvalue's place: descending, ties by ascending index
+  int rank = 0;
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    const double dj = __shfl_sync(0xffffffffu, d, j);
+    if (j < n && (dj > d || (dj == d && j < lane))) ++rank;
+  }
   __syncwarp();
   if (lane < n) {
-    const int c = so[warp][lane];
-    wb[lane] = static_cast<float>(sd[warp][c]);
-    const double sign = column_sign(v, n, c);
+    // column `lane` of V, its largest-magnitude entry (the first on a tie)
+    // made positive
+    int imax = 0;
+    for (int i = 1; i < n; ++i)
+      if (fabs(sm[i][lane]) > fabs(sm[imax][lane])) imax = i;
+    const double sign = sm[imax][lane] < 0.0 ? -1.0 : 1.0;
+    wb[rank] = static_cast<float>(d);
     for (int i = 0; i < n; ++i)
-      Vb[i * n + lane] = static_cast<float>(sign * v[i][c]);
+      Vb[i * n + rank] = static_cast<float>(sign * sm[i][lane]);
   }
 }
 
@@ -337,9 +407,19 @@ int cslam_small_eigh(const float* A, float* w, float* V, int batch, int n,
                      void* count, void* stream) {
   if (batch < 1 || n < 1 || n > kMaxN)
     return static_cast<int>(cudaErrorInvalidValue);
-  eigh_kernel<<<blocks_for(batch), threads_for(batch), 0,
-                static_cast<cudaStream_t>(stream)>>>(
-      A, w, V, batch, n, static_cast<unsigned long long*>(count));
+  const dim3 grid(blocks_for(batch)), block(threads_for(batch));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  unsigned long long* c = static_cast<unsigned long long*>(count);
+  switch (n + (n & 1)) {  // odd n: one dummy index
+    case 2: eigh_kernel<2><<<grid, block, 0, st>>>(A, w, V, batch, n, c); break;
+    case 4: eigh_kernel<4><<<grid, block, 0, st>>>(A, w, V, batch, n, c); break;
+    case 6: eigh_kernel<6><<<grid, block, 0, st>>>(A, w, V, batch, n, c); break;
+    case 8: eigh_kernel<8><<<grid, block, 0, st>>>(A, w, V, batch, n, c); break;
+    case 10: eigh_kernel<10><<<grid, block, 0, st>>>(A, w, V, batch, n, c); break;
+    case 12: eigh_kernel<12><<<grid, block, 0, st>>>(A, w, V, batch, n, c); break;
+    case 14: eigh_kernel<14><<<grid, block, 0, st>>>(A, w, V, batch, n, c); break;
+    default: eigh_kernel<16><<<grid, block, 0, st>>>(A, w, V, batch, n, c); break;
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -13,7 +13,9 @@ networkx ``tracemin_lu``, ``cslam/mac/mac.py:35-59``), with its two tiers:
 
    and LOBPCG (:mod:`cslam_tpu_torch.ops.lobpcg`) on ``B^-1``, whose
    leading eigenvalues are well separated where the Laplacian's smallest
-   are clustered.
+   are clustered. With ``Tinv`` symmetric, ``B^-1 x = Tinv x - Z (Z^T x)``
+   for ``Z = Y L^-T`` (``L`` the Cholesky factor of ``S``), formed once
+   per evaluation; an apply is then three products.
 
 Padding + deflation: graphs are embedded in a tier size ``P`` with an
 ``active`` mask; padded nodes get a large diagonal shift ``sigma`` and the
@@ -185,11 +187,40 @@ def woodbury_factor(G: torch.Tensor, lr_w: torch.Tensor,
     return torch.where(info == 0, chol, torch.full_like(chol, float("nan")))
 
 
+def woodbury_z(Y: torch.Tensor, chol: torch.Tensor) -> torch.Tensor:
+    """``Z = Y L^-T`` for :func:`woodbury_factor`'s ``chol = L``: one
+    triangular solve with ``P`` right-hand sides per evaluation (cuBLAS's
+    ``trsm`` on the card, at its rate, no host read). Since ``Tinv`` is
+    exactly symmetric and ``Y = Tinv U``, ``Y S^-1 U^T Tinv = Z Z^T``, so
+    every apply after this is plain products. A NaN factor (a failed
+    factorization) gives a NaN ``Z``."""
+    return torch.linalg.solve_triangular(chol.T, Y, upper=True, left=False)
+
+
+def woodbury_apply(Tinv: torch.Tensor, Z: torch.Tensor):
+    """``x -> B^-1 x = Tinv x - Z (Z^T x)`` (``Z`` from :func:`woodbury_z`):
+    three products that read ``Tinv`` once and ``Z`` twice, with no
+    sequential pass. A LOBPCG stage of ``i`` iterations applies it twice
+    per iteration, so its least time on the card is its bytes, ``2 i (P^2
+    + 2 P (M + 1)) x 4`` at 3.35 TB/s."""
+    def apply(x):
+        return Tinv @ x - Z @ (Z.T @ x)
+    return apply
+
+
 def woodbury_inverse(Tinv: torch.Tensor, U: torch.Tensor, Y: torch.Tensor,
                      chol: torch.Tensor):
-    """``x -> B^-1 x = t - Y S^-1 U^T t``, ``t = Tinv x``; ``S^-1`` by two
-    triangular solves against :func:`woodbury_factor`'s ``chol`` (cuBLAS on
-    the card: no host read, no MAGMA)."""
+    """``x -> B^-1 x`` in the form every caller runs: :func:`woodbury_z`
+    once, then :func:`woodbury_apply`. ``U`` is not read (the arguments are
+    :func:`woodbury_inverse_ref`'s)."""
+    return woodbury_apply(Tinv, woodbury_z(Y, chol))
+
+
+def woodbury_inverse_ref(Tinv: torch.Tensor, U: torch.Tensor,
+                         Y: torch.Tensor, chol: torch.Tensor):
+    """Plain version, for the tests and ``chip_smoke.py`` only: ``x -> t -
+    Y S^-1 U^T t``, ``t = Tinv x``, ``S^-1`` by two triangular solves
+    against ``chol`` per apply, as the JAX package's ``cho_solve``."""
     def apply(x):
         t = Tinv @ x
         z = torch.linalg.solve_triangular(chol, U.T @ t, upper=False)

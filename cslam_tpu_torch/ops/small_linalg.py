@@ -20,6 +20,13 @@ and the polar factor ``U Vh`` of ``_extend_basis``), and the comparisons
 on the card are too. A kernel's failure is not an exception: a matrix
 that does not converge, or holds a NaN or an infinity, gets NaN outputs.
 
+The eigh kernel runs a parallel (round-robin) Jacobi order in float64;
+:func:`eigh_jacobi_ref` repeats its arithmetic in torch float64 (rotation
+order, entry formula, convergence sums, sign and NaN rules), so that the
+tests can check that arithmetic on the CPU and ``chip_smoke.py`` can hold
+the kernel to it bit for bit. It is never on the main path: the plain
+version a CPU tensor takes stays the library call.
+
 Each wrapper runs its plain version for a CPU tensor and, for a CUDA
 tensor, launches its kernel or raises. ``eigh_launches`` and
 ``svd_launches`` count the wrappers' launches from the host (eager calls,
@@ -33,6 +40,7 @@ from __future__ import annotations
 
 from typing import Dict
 
+import numpy as np
 import torch
 
 MAX_N = 16
@@ -79,6 +87,128 @@ def eigh_descending_ref(A: torch.Tensor):
     """Plain version: ``torch.linalg.eigh``, reversed to descending."""
     w, V = torch.linalg.eigh(A)
     return w.flip(-1), V.flip(-1)
+
+
+#: the eigh kernel's constants (``csrc/small_eigh.cu``)
+MAX_SWEEPS = 40
+_OFF_TOL = 1e-26        # squared: off-norm <= 1e-13 |A|_F
+_WARP = 32
+
+
+def _round_robin(N: int) -> list:
+    """The kernel's parallel order of ``N`` (even) indices: step ``k``
+    pairs ``N - 1`` with ``k`` and ``(k - i) mod (N - 1)`` with ``(k + i)
+    mod (N - 1)``; one partner list per step."""
+    M = N - 1
+    return [[k if j == M else M if j == k else (2 * k - j + M) % M
+             for j in range(N)] for k in range(M)]
+
+
+def _lane_sums(sq: torch.Tensor) -> torch.Tensor:
+    """The kernel's sum of ``sq`` (``[b, N, N]``): each lane (row) sums its
+    row in column order, then the 32 lanes (zeros past ``N``) add up in
+    ``warp_sum``'s butterfly. Returns ``[b]``."""
+    acc = torch.zeros(sq.shape[:2], dtype=sq.dtype, device=sq.device)
+    for j in range(sq.shape[-1]):
+        acc = acc + sq[:, :, j]
+    x = torch.nn.functional.pad(acc, (0, _WARP - sq.shape[1]))
+    lane = torch.arange(_WARP, device=sq.device)
+    for o in (16, 8, 4, 2, 1):
+        x = x + x[:, lane ^ o]
+    return x[:, 0]
+
+
+def _sqrt(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded float64 square root, as the card's ``sqrt``:
+    numpy's (the CPU's own instruction); ``torch.sqrt`` on the CPU may
+    take a vector math library's, which can miss by one ulp."""
+    return torch.from_numpy(np.sqrt(x.numpy()))
+
+
+def _rotation_tan(app, aqq, apq):
+    theta = (aqq - app) / (2.0 * apq)
+    sign = torch.where(theta >= 0.0, 1.0, -1.0).to(theta.dtype)
+    return torch.where(theta.abs() > 1e150, 0.5 / theta,
+                       sign / (theta.abs() + _sqrt(theta * theta + 1.0)))
+
+
+def _jacobi_step(a, v, partner, n):
+    """One parallel step: the rotations of the pairs (r, partner[r])."""
+    N = a.shape[-1]
+    r = torch.arange(N, device=a.device)
+    q = torch.tensor(partner, device=a.device)
+    low = r < q
+    d = torch.diagonal(a, dim1=1, dim2=2)
+    apq = a[:, r, q]
+    t = torch.where(low & (q < n) & (apq != 0.0),
+                    _rotation_tan(d, d[:, q], apq), torch.zeros_like(d))
+    c = 1.0 / _sqrt(t * t + 1.0)
+    s = t * c
+    lo = torch.minimum(r, q)
+    tm, alpha = t[:, lo], c[:, lo]
+    beta = torch.where(low, -s[:, lo], s[:, lo])
+    ar, br = alpha[:, :, None], beta[:, :, None]
+    aj, bj = alpha[:, None, :], beta[:, None, :]
+    new = (((ar * aj) * a + (br * bj) * a[:, q][:, :, q])
+           + ((ar * bj) * a[:, :, q] + (br * aj) * a[:, q, :]))
+    new[:, r, r] = torch.where(low, d - tm * apq, d + tm * apq)
+    new[:, r, q] = 0.0
+    return new, aj * v + bj * v[:, :, q]
+
+
+def eigh_jacobi_ref(A: torch.Tensor, max_sweeps: int = MAX_SWEEPS,
+                    return_sweeps: bool = False):
+    """The eigh kernel's own arithmetic in torch float64, for the tests and
+    ``chip_smoke.py`` (never on the main path): the lower triangle read,
+    the round-robin order over ``n`` rounded up to even (odd ``n``: a dummy
+    index whose pairs rotate by the identity), each entry summed as the
+    kernel sums it, the convergence test's sums in the kernel's order, the
+    sign rule, and NaN outputs for a non-finite input or no convergence
+    within ``max_sweeps``. Its results equal the kernel's bit for bit
+    (IEEE float64 with correctly rounded square roots, no fused
+    multiply-add on either side). It runs on the CPU and returns on
+    ``A``'s device. With ``return_sweeps`` also the sweeps each matrix
+    rotated (``[b]`` int64)."""
+    a32 = _batched("small eigh", A).cpu()
+    b, n = a32.shape[0], a32.shape[-1]
+    N = n + n % 2
+    dev = a32.device
+    lower = torch.ones(n, n, dtype=torch.bool, device=dev).tril()
+    sym = torch.where(lower, a32, a32.transpose(1, 2))
+    finite = torch.isfinite(sym).flatten(1).all(1)
+    a = torch.zeros((b, N, N), dtype=torch.float64, device=dev)
+    a[:, :n, :n] = sym.double()
+    v = torch.eye(N, dtype=torch.float64, device=dev).expand(b, N, N).clone()
+    eye = torch.eye(N, dtype=torch.bool, device=dev)
+    fro = _lane_sums(a * a)
+    active, converged = finite.clone(), torch.zeros_like(finite)
+    sweeps = torch.zeros(b, dtype=torch.int64, device=dev)
+    steps = _round_robin(N)
+    for _ in range(max_sweeps):
+        off = _lane_sums(torch.where(eye, 0.0, a * a))
+        done = active & (off <= _OFF_TOL * fro)
+        converged |= done
+        active &= ~done
+        if not bool(active.any()):
+            break
+        a_new, v_new = a, v
+        for partner in steps:
+            a_new, v_new = _jacobi_step(a_new, v_new, partner, n)
+        keep = active[:, None, None]
+        a, v = torch.where(keep, a_new, a), torch.where(keep, v_new, v)
+        sweeps += active.to(torch.int64)
+    d = torch.diagonal(a, dim1=1, dim2=2)[:, :n]
+    order = torch.sort(d, dim=1, descending=True, stable=True).indices
+    vv = v[:, :n, :n]
+    imax = vv.abs().argmax(dim=1, keepdim=True)
+    sign = torch.where(vv.gather(1, imax) < 0.0, -1.0, 1.0).to(vv.dtype)
+    w = d.gather(1, order).float()
+    V = (sign * vv).gather(2, order[:, None, :].expand(b, n, n)).float()
+    w[~converged] = float("nan")
+    V[~converged] = float("nan")
+    w = w.reshape(A.shape[:-1]).to(A.device)
+    V = V.reshape(A.shape).to(A.device)
+    return (w, V, sweeps) if return_sweeps else (w, V)
 
 
 def svd_ref(A: torch.Tensor):

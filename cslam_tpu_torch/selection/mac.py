@@ -310,21 +310,23 @@ def _lobpcg_state(s) -> dict:
 
 
 def _b_inverse(s, o):
-    return fd.woodbury_inverse(o["Tinv"], o["U"], o["Y"], s["chol"])
+    return fd.woodbury_apply(o["Tinv"], s["Z"])
 
 
 def _wb_setup(s, o, round_: bool, warm_ritz=False, lobpcg_iters=48,
               short_iters=14, **_):
     """Factor the capacitance for this evaluation's weights (the relaxed
-    iterate, or its rounding) and start LOBPCG's first stage."""
+    iterate, or its rounding), form the apply's ``Z`` from the factor and
+    start LOBPCG's first stage."""
     cand = (_round_mask(s["w"], o["cw"], o["cmask"], o["k"]) if round_
             else s["w"])
     lr_w = torch.cat([o["lr_w_fixed"], cand * o["cw"]])
-    chol = fd.woodbury_factor(o["G"], lr_w, o["cinv_sigma"])
+    Z = fd.woodbury_z(o["Y"], fd.woodbury_factor(o["G"], lr_w,
+                                                  o["cinv_sigma"]))
     x0 = s["aux"] if warm_ritz else o["x0"]
-    st = lobpcg_init(fd.woodbury_inverse(o["Tinv"], o["U"], o["Y"], chol),
-                     x0, min(short_iters, lobpcg_iters), enabled=s["live"])
-    return {"lr_w": lr_w, "chol": chol,
+    st = lobpcg_init(fd.woodbury_apply(o["Tinv"], Z), x0,
+                     min(short_iters, lobpcg_iters), enabled=s["live"])
+    return {"lr_w": lr_w, "Z": Z,
             "lobpcg_calls": s["lobpcg_calls"] + s["live"].to(torch.int32),
             **{"l" + k: v for k, v in st.items()}}
 
@@ -339,7 +341,12 @@ def _wb_setup_round(s, o, **static):
 
 def _wb_lobpcg(s, o, block=_LOBPCG_BLOCK, **_):
     """``block`` LOBPCG iterations (each masked by ``lactive``)."""
-    A = _b_inverse(s, o)
+    return _lobpcg_iterations(s, _b_inverse(s, o), block)
+
+
+def _lobpcg_iterations(s, A, block=_LOBPCG_BLOCK) -> dict:
+    """The body of :func:`_wb_lobpcg` on the operator ``A`` (``chip_smoke.py``
+    also runs it on the plain apply, ``fd.woodbury_inverse_ref``)."""
     st = _lobpcg_state(s)
     iters, masked = s["lobpcg_iters"], s["lobpcg_masked"]
     for _ in range(block):
@@ -771,7 +778,7 @@ class MAC:
             ops["L_fixed"] = self._L_fixed
             return ops
         pre = self._pre
-        ops.update(Tinv=pre["Tinv"], U=pre["U"], Y=pre["Y"], G=pre["G"],
+        ops.update(Tinv=pre["Tinv"], Y=pre["Y"], G=pre["G"],
                    cinv_sigma=self._cinv_sigma, chain_i=self._chain_i,
                    chain_j=self._chain_j, chain_w=self._chain_w,
                    lr_i=self._lr_i, lr_j=self._lr_j,

@@ -460,6 +460,54 @@ def test_small_eigh_matches_plain_version_on_card():
 
 
 @pytest.mark.cuda
+def test_small_eigh_matches_jacobi_mirror_bit_for_bit_on_card():
+    """The parallel-order Jacobi kernel against ``eigh_jacobi_ref`` (its
+    arithmetic in torch float64, run on the CPU copy of the input): the
+    same bits at n = 1 .. 16, one matrix and a batch of four per size."""
+    from cslam_tpu_torch.ops import small_linalg as sl
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    rng = np.random.default_rng(9)
+    for n in range(1, 17):
+        Q, _ = np.linalg.qr(rng.standard_normal((n, n)))
+        mats = np.stack([((Q * lam) @ Q.T).astype(np.float32) for lam in (
+            rng.standard_normal(n) * 10.0, 1.0 + 1e-4 * rng.standard_normal(n),
+            np.repeat([3.0, -1.0], (n + 1) // 2)[:n], np.logspace(-6, 5, n))])
+        for A in (mats[0], mats):
+            w, V = sl.eigh_descending(torch.from_numpy(A).cuda())
+            wr, Vr = sl.eigh_jacobi_ref(torch.from_numpy(A))
+            assert torch.equal(w.cpu(), wr) and torch.equal(V.cpu(), Vr), n
+
+
+@pytest.mark.cuda
+def test_woodbury_apply_matches_plain_version_on_card():
+    """The apply with no triangular solve, ``Tinv x - Z (Z^T x)``, against
+    ``woodbury_inverse_ref`` (two per apply) on the card at P = 1024:
+    within 32 float32 eps of max |Tinv x|, the size of the terms both forms
+    subtract."""
+    from cslam_tpu_torch.ops import fiedler as fd
+    from cslam_tpu_torch.ops import highest_precision
+    from cslam_tpu_torch.selection.mac import MAC, mac_kwargs_from_params
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    n, fixed, cands = _slam_mac_inputs()
+    mac = MAC(fixed, cands, n, device="cuda", **mac_kwargs_from_params({}))
+    pre = mac._pre
+    M = pre["U"].shape[1] - 1
+    lr_w = torch.full((M,), 0.5, device="cuda")
+    chol = fd.woodbury_factor(pre["G"], lr_w, lr_w.new_full(
+        (1,), 1.0 / pre["sigma"]))
+    x = torch.randn((pre["Tinv"].shape[0], 12), device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(0))
+    args = (pre["Tinv"], pre["U"], pre["Y"], chol)
+    new = highest_precision(lambda: fd.woodbury_inverse(*args)(x))()
+    ref = highest_precision(lambda: fd.woodbury_inverse_ref(*args)(x))()
+    scale = float((pre["Tinv"] @ x).abs().max())
+    eps = float(torch.finfo(torch.float32).eps)
+    assert float((new - ref).abs().max()) <= 32 * eps * scale
+
+
+@pytest.mark.cuda
 def test_small_svd_matches_plain_version_on_card():
     """The one-sided Jacobi SVD against ``torch.linalg.svd`` on the card:
     singular values within 16 float32 eps of the largest, the product
