@@ -46,12 +46,16 @@ Builds the hand-written kernels from the sources in the checkout (one
   tier, with each LOBPCG stage's captured body replayed until the host
   reads its stop flag clear (bit for bit the graphed selection, with the
   same LOBPCG stages and iterations); the small-eigensolver
-  kernels (``csrc/small_eigh.cu``) against ``torch.linalg.eigh`` / ``svd``
-  on the Rayleigh-Ritz, SVQB and basis-extension matrices of a real P =
-  8192 evaluation and on random symmetric matrices with clustered and
-  repeated eigenvalues, the parallel-order eigh also bit for bit against
-  ``small_linalg.eigh_jacobi_ref``, with their times beside the library
-  calls';
+  kernels (``csrc/small_eigh.cu``): the eigh against ``torch.linalg.eigh``
+  on the Rayleigh-Ritz and SVQB matrices of a real P = 8192 evaluation
+  and on random symmetric matrices with clustered and repeated
+  eigenvalues, the SVD against ``torch.linalg.svd`` (in float64; beside
+  it the float32 call, held on the main path's blocks) on the
+  basis-extension blocks of one whole eager P = 8192 selection (up to
+  64), seeded blocks at n = 1 .. 16 and rank-deficient ones, each kernel
+  also bit for bit against its float64 mirror
+  (``small_linalg.eigh_jacobi_ref``, ``svd_jacobi_ref``), with their
+  times and device times beside the library calls';
   GNC-TLS cold (first with the tier's captures, then again) and warm on
   ``benchmarks/graphs``' 8 x 256 and 8 x 512 graphs (both outliers
   rejected, ATE within 0.05 m of the reference's ``*_optimized.g2o``),
@@ -183,6 +187,14 @@ this checkout against another on the same card:
 
     python3 chip_smoke.py --phases mac_replay --replay-roots OTHER,.
 
+Not in the default run either: phase ``small_svd_ab`` runs the SVD kernel
+of each tree of ``--replay-roots`` in fresh processes, a, b, b, a, on the
+same inputs (the basis-extension blocks of one eager Woodbury selection
+at P = 1024, seeded and rank-deficient blocks): CUDA-event, device and
+graph-replayed ms at 4 x 4 and 12 x 12, batch 1, and at batch 1,024, with
+the SM clock, the sweeps per block, and which outputs differ between the
+trees (``--phases small_svd_ab --replay-roots OTHER,.``).
+
 Every kernel's launch counter is set to 0 just before each main-path run and
 read just after; a kernel that did not launch fails the run. The missions
 and replays also count the verification graphs' captures and replays
@@ -272,6 +284,41 @@ def _time_cold_ms(fn, iters: int, flush, warmup: int = 2) -> float:
         pairs.append((start, stop))
     _sync()
     return sum(a.elapsed_time(b) for a, b in pairs) / iters
+
+
+def _graph_call_ms(fn, calls: int = 100, replays: int = 10) -> float:
+    """Device ms per call of ``fn`` run back to back from one CUDA graph
+    of ``calls`` calls (CUDA events over ``replays`` replays): a kernel's
+    time as a captured loop runs it, with the host out of the way and the
+    card kept busy."""
+    import torch
+    fn()
+    _sync()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    _sync()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    stop.record()
+    _sync()
+    return start.elapsed_time(stop) / (replays * calls)
+
+
+def _sm_clock_mhz():
+    """The card's SM clock now (``nvidia-smi``), or None."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,"
+         "nounits"], capture_output=True, text=True, timeout=60)
+    try:
+        return int(out.stdout.split()[0])
+    except (IndexError, ValueError):
+        return None
 
 
 def _bound(flops: float, nbytes: float, dtype: str) -> dict:
@@ -1105,37 +1152,170 @@ def _eigh_kernel_ops(n: int, sweeps: int) -> float:
                  + (sweeps + 1) * 2 * N * N)
 
 
-def _small_linalg_checks(mac, rounded, failures):
-    """The small-eigensolver kernels against their plain versions on the
-    card: on the Rayleigh-Ritz (12 x 12) and SVQB (4 x 4) matrices and the
-    basis-extension blocks (4 x 4 SVD) of one real Woodbury evaluation of
-    ``mac`` (recorded from its eager run), and on random symmetric
-    matrices with clustered and repeated eigenvalues. The eigh kernel is
-    held bit for bit against ``eigh_jacobi_ref`` (its arithmetic in torch
-    float64, run on the CPU copy of the same input; it also gives the
-    sweeps each matrix took) and within the limits below against
-    ``torch.linalg.eigh``. Then the times of the kernels, the plain
-    versions and the library calls (``torch.linalg.eigh`` / ``svd``),
-    CUDA events, at batch 1; the eigh bounds count this run's sweeps."""
+def _svd_cases(mac, rng):
+    """The SVD kernel's cases: the 4 x 4 top blocks that ``_extend_basis``
+    decomposes in one whole eager Woodbury selection of ``mac`` (the same
+    programs as the graphed one, launched one by one, so that each block
+    passes through Python; the first 64), seeded blocks at n = 1 .. 16
+    (Gaussian and graded singular values) and rank-deficient blocks (a zero
+    column, the completion; two equal columns)."""
     import numpy as np
     import torch
 
     from cslam_tpu_torch.ops import small_linalg as sl
-    eigh_in, svd_in = [], []
-    eigh0, svd0 = sl.eigh_descending, sl.svd
+    recorded, svd0 = [], sl.svd
+
+    def rec_svd(A):
+        if len(recorded) < 64:
+            recorded.append(A.detach().clone())
+        return svd0(A)
+    sl.svd = rec_svd
+    try:
+        mac.fw_subset(np.zeros(mac._m), 5, max_iters=20, eager=True)
+    finally:
+        sl.svd = svd0
+    seeded = []
+    for n in range(1, 17):
+        P, _ = np.linalg.qr(rng.standard_normal((n, n)))
+        Q, _ = np.linalg.qr(rng.standard_normal((n, n)))
+        seeded += [rng.standard_normal((n, n)),
+                   (P * np.logspace(-6, 0, n)) @ Q.T]
+    zero = rng.standard_normal((4, 4))
+    zero[:, 3] = 0.0
+    twin = rng.standard_normal((6, 6))
+    twin[:, 4] = twin[:, 1]
+
+    def cuda(mats):
+        return [torch.from_numpy(a.astype(np.float32)).cuda() for a in mats]
+    return {"selection": recorded, "random": cuda(seeded),
+            "rank_deficient": cuda([zero, twin])}
+
+
+def _small_svd_checks(mac, rng, failures):
+    """The SVD kernel on the card, one call per matrix as LOBPCG calls it,
+    on :func:`_svd_cases`: bit for bit against ``svd_jacobi_ref`` (its
+    arithmetic in torch float64 on the CPU copy, which also counts each
+    matrix's sweeps; a mismatch fails with no limit) and within the limits
+    against ``torch.linalg.svd`` of the input in float64 on the card. The
+    float32 library call's own distance from that reference, and the
+    kernel's from the float32 call (the limits held on the recorded
+    blocks), are kept beside them: at n = 16 the float32 call is the less
+    accurate of the two. Returns the record and a recorded 4 x 4 block for
+    the times."""
+    import torch
+
+    from cslam_tpu_torch.ops import small_linalg as sl
+    eps = float(torch.finfo(torch.float32).eps)
+    # an older checkout has no mirror: its fields are then null, not a pass
+    has_mirror = hasattr(sl, "svd_jacobi_ref")
+    out, sweeps_of = {}, {}
+    cases = _svd_cases(mac, rng)
+
+    def errors(U, S, Vh, ref):
+        """|S - S_ref| in float32 eps of max sigma_ref, and max |U Vh -
+        (U Vh)_ref| where sigma_min > 1e-3 sigma_max (else 0)."""
+        Ur, Sr, Vhr = (x.double() for x in ref)
+        top = max(float(Sr.max()), 1e-30)
+        polar = (float((U.double() @ Vh.double() - Ur @ Vhr).abs().max())
+                 if float(Sr.min()) > 1e-3 * top else 0.0)
+        return float((S.double() - Sr).abs().max()) / (eps * top), polar
+
+    for name, mats in cases.items():
+        svd_err = svd_rel = polar_err = mirror_err = 0.0
+        f32_rel = f32_polar = lib_rel = lib_polar = 0.0
+        mismatches, sweeps = 0, []
+        for A in mats:
+            U, S, Vh = sl.svd(A)
+            ref64 = torch.linalg.svd(A.double())
+            ref32 = sl.svd_ref(A)
+            svd_err = max(svd_err, float((S.double() - ref64[1]).abs().max()))
+            rel, polar = errors(U, S, Vh, ref64)
+            svd_rel, polar_err = max(svd_rel, rel), max(polar_err, polar)
+            rel, polar = errors(U, S, Vh, ref32)
+            f32_rel, f32_polar = max(f32_rel, rel), max(f32_polar, polar)
+            rel, polar = errors(*ref32, ref64)
+            lib_rel, lib_polar = max(lib_rel, rel), max(lib_polar, polar)
+            if not has_mirror:
+                continue
+            *mirror, sw = sl.svd_jacobi_ref(A.cpu(), return_sweeps=True)
+            sweeps.append(int(sw))
+            sweeps_of[id(A)] = int(sw)
+            got = [x.cpu() for x in (U, S, Vh)]
+            if not all(torch.equal(g, m) for g, m in zip(got, mirror)):
+                mismatches += 1
+                mirror_err = max(mirror_err, *(
+                    float((g - m).abs().nan_to_num(float("inf")).max())
+                    for g, m in zip(got, mirror)))
+        out[name] = {
+            "matrices": len(mats), "max_abs_err": svd_err,
+            "max_err_in_eps_of_max_sigma": svd_rel,
+            "max_abs_polar_err": polar_err,
+            "vs_float32_library": {"max_err_in_eps_of_max_sigma": f32_rel,
+                                   "max_abs_polar_err": f32_polar},
+            "float32_library_vs_float64": {
+                "max_err_in_eps_of_max_sigma": lib_rel,
+                "max_abs_polar_err": lib_polar},
+            "mirror_mismatches": mismatches if has_mirror else None,
+            "mirror_max_abs_err": mirror_err if has_mirror else None,
+            "sweeps": [min(sweeps), max(sweeps)] if sweeps else None,
+            "sweeps_mean": sum(sweeps) / len(sweeps) if sweeps else None}
+        # limits: singular values as the eigenvalues; the polar factor U Vh
+        # (what the basis extension uses) within 1e-4 where the block is
+        # well conditioned; on the main path's blocks also against the
+        # float32 call
+        if svd_rel > _EIGVAL_EPS or polar_err > 1e-4 or (
+                name == "selection"
+                and (f32_rel > _EIGVAL_EPS or f32_polar > 1e-4)):
+            failures.append(f"small svd on {name}: {out[name]}")
+        # the same arithmetic in IEEE float64 on both sides: no limit
+        if mismatches:
+            failures.append(f"small svd on {name}: {mismatches} of "
+                            f"{len(mats)} matrices differ from "
+                            f"svd_jacobi_ref, by up to {mirror_err}")
+    if not cases["selection"]:
+        failures.append("small svd: the selection decomposed no block")
+    groups = list(out.values())
+    out.update(
+        matrices=sum(g["matrices"] for g in groups),
+        max_abs_err=max(g["max_abs_err"] for g in groups),
+        mirror_mismatches=(sum(g["mirror_mismatches"] for g in groups)
+                           if has_mirror else None),
+        sweeps=out["selection"]["sweeps"],
+        sweeps_mean=out["selection"]["sweeps_mean"])
+    B4 = (cases["selection"] or [m for m in cases["random"]
+                                 if m.shape[-1] == 4])[0]
+    out["timed_block_sweeps"] = sweeps_of.get(id(B4))
+    return out, B4
+
+
+def _small_linalg_checks(mac, rounded, failures):
+    """The small-eigensolver kernels against their plain versions on the
+    card. The eigh kernel on the Rayleigh-Ritz (12 x 12) and SVQB (4 x 4)
+    matrices of one real Woodbury evaluation of ``mac`` (recorded from its
+    eager run) and on random symmetric matrices with clustered and
+    repeated eigenvalues: bit for bit against ``eigh_jacobi_ref`` (its
+    arithmetic in torch float64, run on the CPU copy of the same input; it
+    also gives the sweeps each matrix took) and within the limits below
+    against ``torch.linalg.eigh``. The SVD kernel as
+    :func:`_small_svd_checks` holds it. Then the times of the kernels, the
+    plain versions and the library calls (``torch.linalg.eigh`` /
+    ``svd``), CUDA events, at batch 1, and the kernels' device times
+    (the SVD's also at batch 1,024, one warp per matrix); the eigh bounds
+    count this run's sweeps."""
+    import numpy as np
+    import torch
+
+    from cslam_tpu_torch.ops import small_linalg as sl
+    eigh_in, eigh0 = [], sl.eigh_descending
 
     def rec_eigh(A):
         eigh_in.append(A.detach().clone())
         return eigh0(A)
-
-    def rec_svd(A):
-        svd_in.append(A.detach().clone())
-        return svd0(A)
-    sl.eigh_descending, sl.svd = rec_eigh, rec_svd
+    sl.eigh_descending = rec_eigh
     try:
         mac.evaluate_objective(rounded)
     finally:
-        sl.eigh_descending, sl.svd = eigh0, svd0
+        sl.eigh_descending = eigh0
     rng = np.random.default_rng(11)
     cases = {"rayleigh_ritz": [a for a in eigh_in if a.shape[-1] == 12][:64],
              "svqb": [a for a in eigh_in if a.shape[-1] == 4][:64],
@@ -1187,30 +1367,9 @@ def _small_linalg_checks(mac, rounded, failures):
             failures.append(f"small eigh on {name}: {mismatches} of "
                             f"{len(mats)} matrices differ from "
                             f"eigh_jacobi_ref, by up to {mirror_err}")
-    svd_err = svd_rel = polar_err = 0.0
-    svd_cases = svd_in[:64] + [torch.from_numpy(
-        rng.standard_normal((4, 4)).astype(np.float32)).cuda()
-        for _ in range(8)]
-    for A in svd_cases:
-        U, S, Vh = sl.svd(A)
-        Ur, Sr, Vhr = sl.svd_ref(A)
-        err = float((S - Sr).abs().max())
-        svd_err = max(svd_err, err)
-        svd_rel = max(svd_rel, err / (eps * max(float(Sr.max()), 1e-30)))
-        if float(Sr.min()) > 1e-3 * float(Sr.max()):
-            polar_err = max(polar_err,
-                            float((U @ Vh - Ur @ Vhr).abs().max()))
-    out["svd"] = {"matrices": len(svd_cases), "max_abs_err": svd_err,
-                  "max_err_in_eps_of_max_sigma": svd_rel,
-                  "max_abs_polar_err": polar_err}
-    # limits: singular values as the eigenvalues; the polar factor U Vh
-    # (what the basis extension uses) within 1e-4 where the block is
-    # well conditioned
-    if svd_rel > _EIGVAL_EPS or polar_err > 1e-4:
-        failures.append(f"small svd: {out['svd']}")
+    out["svd"], B4 = _small_svd_checks(mac, rng, failures)
     A12 = (cases["rayleigh_ritz"] or cases["random"])[0]
     A4 = (cases["svqb"] or cases["random"])[0]
-    B4 = svd_cases[0]
     times = {}
     for label, fn in (
             ("eigh12", lambda: sl.eigh_descending(A12)),
@@ -1231,6 +1390,10 @@ def _small_linalg_checks(mac, rounded, failures):
                             ("eigh12", lambda: sl.eigh_descending(A12)),
                             ("eigh4", lambda: sl.eigh_descending(A4)),
                             ("svd4", lambda: sl.svd(B4)))}
+    B4_1024 = B4.expand(1024, 4, 4).contiguous()
+    out["device_ms"]["svd4_batch1024"] = _device_profile(
+        lambda: sl.svd(B4_1024), 20).get("device_ms")
+    out["graph_ms"] = {"svd4": _graph_call_ms(lambda: sl.svd(B4))}
     # bytes: the matrix read once, the outputs written once; operations:
     # 9 n^3, the usual count of a symmetric eigendecomposition with its
     # vectors (an SVD: 14 n^3 at this size), at the FP32 rate (float32 in
@@ -2793,6 +2956,172 @@ def phase_mac_replay(results, failures):
     print("  mac_replay " + json.dumps(out))
 
 
+def _cyclic_svd_sweeps(a, max_sweeps=40) -> int:
+    """The sweeps that a cyclic one-sided Jacobi SVD (n(n - 1)/2 rotations
+    in a row per sweep, with the round-robin kernel's skip test and stop
+    rule) runs on the block ``a``, its last, rotation-free one included: a
+    float64 numpy diagnostic beside an older checkout's cyclic kernel (its
+    sums are not that kernel's shuffle trees)."""
+    import numpy as np
+    x = np.array(a, dtype=np.float64)
+    n = x.shape[0]
+    for sweep in range(1, max_sweeps + 1):
+        rotated = False
+        for p in range(n - 1):
+            for q in range(p + 1, n):
+                alpha, beta = x[:, p] @ x[:, p], x[:, q] @ x[:, q]
+                gamma = x[:, p] @ x[:, q]
+                if (abs(gamma) <= 1e-15 * n * np.sqrt(alpha * beta)
+                        or gamma == 0.0):
+                    continue
+                rotated = True
+                theta = (beta - alpha) / (2.0 * gamma)
+                t = (0.5 / theta if abs(theta) > 1e150 else
+                     np.sign(theta or 1.0)
+                     / (abs(theta) + np.sqrt(theta * theta + 1.0)))
+                c = 1.0 / np.sqrt(t * t + 1.0)
+                xp, xq = x[:, p].copy(), x[:, q]
+                x[:, p] = c * xp - t * c * xq
+                x[:, q] = t * c * xp + c * xq
+        if not rotated:
+            return sweep
+    return max_sweeps
+
+
+def _svd_ab_worker(inputs: str, out: str, root: str) -> int:
+    """One tree's SVD kernel (a process of its own, ``root``'s
+    ``cslam_tpu_torch``): every case of ``inputs`` one call at a time, as
+    LOBPCG calls it; then, after a second of large products (so that the
+    card is off its idle clocks), CUDA-event ms per eager call (200 calls),
+    device ms per call (``torch.profiler``, 50 calls) and ms per call
+    replayed back to back from a CUDA graph (:func:`_graph_call_ms`, with
+    the SM clock read after it) at 4 x 4 (a recorded block) and 12 x 12,
+    batch 1, and at batch 1,024 (the recorded blocks in turn); and the
+    graph-replayed ms of each recorded block. Saves the outputs and the
+    times."""
+    sys.path.insert(0, str(Path(root).resolve()))
+    import torch
+
+    from cslam_tpu_torch.ops import nns
+    from cslam_tpu_torch.ops import small_linalg as sl
+    nns.build(["small_eigh"])
+    cases = torch.load(inputs)
+    outputs = {name: [[x.cpu() for x in sl.svd(A.cuda())] for A in mats]
+               for name, mats in cases["groups"].items()}
+    # a second of large products first: the card leaves its idle clocks
+    big = torch.ones((4096, 4096), device="cuda")
+    t_end = time.perf_counter() + 1.0
+    while time.perf_counter() < t_end:
+        big @ big
+        _sync()
+    times = {}
+    for label, A in (("4x4", cases["block4"]), ("12x12", cases["block12"]),
+                     ("4x4_batch1024", cases["batch1024"])):
+        A = A.cuda()
+        if A.dim() == 2:
+            times[f"{label}_event_ms"] = _time_ms(lambda: sl.svd(A), 200)
+        times[f"{label}_device_ms"] = _device_profile(
+            lambda: sl.svd(A), 50 if A.dim() == 2 else 20).get("device_ms")
+        times[f"{label}_graph_ms"] = _graph_call_ms(lambda: sl.svd(A))
+        times[f"{label}_sm_clock_mhz"] = _sm_clock_mhz()
+    per_block = [_graph_call_ms(lambda: sl.svd(A), 50, 5)
+                 for A in (B.cuda() for B in cases["groups"]["selection"])]
+    torch.save({"root": str(Path(root).resolve()), "module": sl.__file__,
+                "outputs": outputs, "times": times,
+                "graph_ms_per_block": per_block}, out)
+    return 0
+
+
+def phase_small_svd_ab(results, failures):
+    """The SVD kernel of each tree of ``--replay-roots`` on the same inputs,
+    a, b, b, a in fresh processes (:func:`_svd_ab_worker`): the 4 x 4
+    blocks of one eager Woodbury selection at P = 1024 (and
+    :func:`_svd_cases`' seeded and rank-deficient blocks), with the times
+    per tree, the sweeps per recorded block (this checkout's mirror where
+    it has one; the cyclic order's, :func:`_cyclic_svd_sweeps`), and which
+    outputs differ between the trees. A tree whose two runs differ fails
+    the phase."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from cslam_tpu_torch.ops import small_linalg as sl
+    rng = np.random.default_rng(13)
+    groups = {name: [A.cpu() for A in mats] for name, mats in _svd_cases(
+        _call_mac(1024, 1024, rng), rng).items()}
+    recorded = groups["selection"]
+    if not recorded:
+        failures.append("small_svd_ab: the selection decomposed no block")
+        return
+    inputs = {"groups": groups, "block4": recorded[0],
+              "block12": next(A for A in groups["random"]
+                              if A.shape[-1] == 12),
+              "batch1024": torch.stack([recorded[i % len(recorded)]
+                                        for i in range(1024)])}
+    roots = list(dict.fromkeys(_REPLAY_ROOTS))
+    order = roots + roots[::-1]
+    runs = []
+    with tempfile.TemporaryDirectory(prefix="cslam_svd_ab_") as tmp:
+        path = str(Path(tmp) / "inputs.pt")
+        torch.save(inputs, path)
+        for n, root in enumerate(order):
+            res = str(Path(tmp) / f"{n}.pt")
+            proc = subprocess.run(
+                [sys.executable, str(Path(__file__).resolve()),
+                 "--svd-ab-worker", path, res, "--replay-roots", root],
+                capture_output=True, text=True, timeout=600)
+            if proc.returncode != 0:
+                failures.append(f"small_svd_ab: the run in {root} failed: "
+                                f"{proc.stderr[-2000:]}")
+                return
+            runs.append(torch.load(res))
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+    out = results["small_svd_ab"] = {"blocks": len(recorded), "trees": {}}
+    sweeps = {"cyclic": [_cyclic_svd_sweeps(A.numpy()) for A in recorded]}
+    if hasattr(sl, "svd_jacobi_ref"):
+        sweeps["round_robin"] = sl.svd_jacobi_ref(
+            torch.stack(recorded), return_sweeps=True)[3].tolist()
+    out["sweeps_per_recorded_block"] = {
+        k: {"min": min(v), "max": max(v), "mean": sum(v) / len(v)}
+        for k, v in sweeps.items()}
+    by_root = {}
+    for root, run in zip(order, runs):
+        by_root.setdefault(root, []).append(run)
+    for root, (first, second) in by_root.items():
+        differ = sum(not same(a, b) for name in groups for a, b in zip(
+            first["outputs"][name], second["outputs"][name]))
+        blocks = first["graph_ms_per_block"] + second["graph_ms_per_block"]
+        out["trees"][root] = {
+            "module": first["module"],
+            "times": {k: [first["times"][k], second["times"][k]]
+                      for k in first["times"]},
+            "graph_ms_per_recorded_block": {
+                "min": min(blocks), "max": max(blocks),
+                "mean": sum(blocks) / len(blocks)},
+            "outputs_differing_between_its_runs": differ}
+        if differ:
+            failures.append(f"small_svd_ab: {differ} outputs differ "
+                            f"between {root}'s own runs")
+    if len(roots) > 1:
+        a, b = (by_root[r][0]["outputs"] for r in roots[:2])
+        cross = {}
+        for name in groups:
+            pairs = list(zip(a[name], b[name]))
+            cross[name] = {
+                "same": sum(same(x, y) for x, y in pairs),
+                "of": len(pairs),
+                "max_abs_s_diff": max(float((x[1] - y[1]).abs().max())
+                                      for x, y in pairs),
+                "max_abs_polar_diff": max(
+                    float((x[0] @ x[2] - y[0] @ y[2]).abs().max())
+                    for x, y in pairs)}
+        out["pair"], out["cross_tree"] = roots[:2], cross
+    print("  small_svd_ab " + json.dumps(out))
+
+
 # -- phase lidar ------------------------------------------------------------
 
 _SC_SHAPE = (20, 60)
@@ -4327,13 +4656,17 @@ def main() -> int:
                 "frontend,lidar,visual,deploy,mac_calls",
         help="comma-separated subset of bank_scan,swarm,swarm_floored,"
              "large_tiers,distributed,frontend,lidar,visual,deploy,"
-             "mac_calls, or mac_replay (not in the default run)")
+             "mac_calls, or mac_replay, small_svd_ab (not in the default "
+             "run)")
     parser.add_argument(
         "--replay-roots", default=".",
-        help="mac_replay: comma-separated trees whose cslam_tpu_torch "
-             "replays the recorded selections")
+        help="mac_replay, small_svd_ab: comma-separated trees whose "
+             "cslam_tpu_torch replays the recorded selections or runs the "
+             "SVD kernel")
     parser.add_argument("--replay-worker", nargs=2, metavar=("INPUTS", "OUT"),
                         help=argparse.SUPPRESS)
+    parser.add_argument("--svd-ab-worker", nargs=2,
+                        metavar=("INPUTS", "OUT"), help=argparse.SUPPRESS)
     args = parser.parse_args()
     phases = args.phases.split(",")
     _REPLAY_ROOTS[:] = args.replay_roots.split(",")
@@ -4344,6 +4677,8 @@ def main() -> int:
         return 2
     if args.replay_worker:      # before this checkout's package is imported
         return _replay_worker(*args.replay_worker, args.replay_roots)
+    if args.svd_ab_worker:
+        return _svd_ab_worker(*args.svd_ab_worker, args.replay_roots)
     try:
         from cslam_tpu_torch.ops import nns
     except ImportError as exc:
@@ -4373,7 +4708,8 @@ def main() -> int:
              "visual": phase_visual,
              "deploy": phase_deploy,
              "mac_calls": phase_mac_calls,
-             "mac_replay": phase_mac_replay}[phase](results, failures)
+             "mac_replay": phase_mac_replay,
+             "small_svd_ab": phase_small_svd_ab}[phase](results, failures)
         except Exception as exc:  # noqa: BLE001 - report, then fail the run
             import traceback
             traceback.print_exc()
@@ -4497,7 +4833,14 @@ def main() -> int:
         "bound_ms": sml.get("svd4_bound", {}).get("bound_ms"),
         "bound_by": sml.get("svd4_bound", {}).get("bound_by"),
         "library_ms": times.get("svd4_library"),
-        "shape": "4 x 4, batch 1", "checks": sml.get("svd")}
+        "device_ms": sml.get("device_ms", {}).get("svd4"),
+        "device_ms_batch1024": sml.get("device_ms", {}).get(
+            "svd4_batch1024"),
+        "mirror_mismatches": sml.get("svd", {}).get("mirror_mismatches"),
+        "sweeps": sml.get("svd", {}).get("sweeps"),
+        "shape": "4 x 4, batch 1 (a block of the selection), sweeps of 3 "
+                 "parallel steps",
+        "checks": sml.get("svd")}
     stages = results.get("mac_calls", {}).get("stages", [])
     stage = max(stages, key=lambda r: r["P"], default={})
     graph_while = {

@@ -29,38 +29,49 @@
 //   one following; a zero singular value's left vector is completed to an
 //   orthonormal U.
 //
-// Design, eigh: two-sided Jacobi in float64 (the inputs are float32; the
-// H100's FP64 rate makes double free at this size and leaves the
-// eigenvalues relatively accurate) in a parallel (round-robin) order, one
-// warp per matrix. Lane r keeps row r of A and of V in registers; n <= 16
-// is rounded up to an even N (odd n: one dummy index) and each step
-// applies N/2 disjoint rotations at once. Each rotation's (c, s) is
-// computed once and broadcast by shuffle, the column updates are
-// lane-local and the row updates take the partner row by shuffle: no
-// shared memory and no __syncwarp inside a sweep. The steps are unrolled
-// over a compile-time N (one template per even size), so the register
-// arrays are indexed statically. The SVD is one-sided (Hestenes), still
-// in the cyclic order with the matrix in shared memory: lane r owns row
-// r, and each pair of columns is orthogonalized from three warp-shuffle
-// sums. The convergence test (off-diagonal norm below 1e-13 of the
-// Frobenius norm, each lane's row summed in column order and the lanes in
-// a shuffle tree; for the SVD a sweep without a rotation) runs inside the
-// kernel, capped at 40 sweeps. ops/small_linalg.eigh_jacobi_ref is the
-// eigh kernel's arithmetic in torch float64, bit for bit.
+// Design: Jacobi in float64 (the inputs are float32; the H100's FP64 rate
+// makes double free at this size and leaves the results relatively
+// accurate) in a parallel (round-robin) order, one warp per matrix. n <= 16
+// is rounded up to an even N (odd n: one dummy index whose pairs never
+// rotate) and each step of a sweep treats N/2 disjoint pairs at once, so a
+// sweep is N - 1 steps in a row (3 at n = 4, 11 at n = 12) instead of the
+// n(n - 1)/2 rotations of a cyclic order. The steps are unrolled over a
+// compile-time N (one template per even size), so each lane's register
+// arrays are indexed statically; no shared memory and no __syncwarp inside
+// a sweep, and the build has --fmad=false, so that the mirrors in
+// ops/small_linalg.py (eigh_jacobi_ref, svd_jacobi_ref: the same arithmetic
+// in torch float64) equal the kernels bit for bit.
+//   eigh: two-sided. Lane r keeps row r of A and of V; each rotation's
+//   (c, s) is computed once, by the lane of the pair's lower index, and
+//   broadcast by shuffle; the column updates are lane-local and the row
+//   updates take the partner row by shuffle. It stops when the
+//   off-diagonal norm is below 1e-13 of the Frobenius norm (each lane's
+//   row summed in column order, the lanes in a shuffle tree).
+//   svd: one-sided (Hestenes). Lane j keeps column j of A and of V. At a
+//   step each lane takes its partner's columns by 2N independent shuffles,
+//   forms alpha, beta, gamma (the pair's squared norms and dot product,
+//   summed in row order; both lanes of a pair get the same bits, with the
+//   pair's lower index first) and rotates its own columns: no reduction
+//   across lanes at all. A pair is skipped where |gamma| <= 1e-15 n
+//   sqrt(alpha beta); a sweep with no rotation anywhere (__any_sync) ends
+//   the loop. Then each lane's singular value is its column's norm, its
+//   place in the descending order comes from shuffles, and its left
+//   vector is its column over that norm. A zero singular value's left
+//   vector is completed to an orthonormal U by Gram-Schmidt on lane 0 in
+//   shared memory (in the sorted order, a rare path).
+// Both loops are capped at 40 sweeps.
 //
 // What bounds it on an H100 SXM: the chain of dependent steps, not the
 // card's rates and not the launch. Its work is a few thousand flops per
-// matrix and a few KB, but each sweep is N - 1 steps in a row (11 at n =
-// 12, 3 at n = 4), and each step is a chain of a few shuffles (a_qq, then
-// the pair's t, c, s to every lane), a float64 division and two square
-// roots with one more division (the rotation), then N independent
-// updates of a and v, built with --fmad=false. A 12 x 12 matrix from
-// LOBPCG takes 6-8 sweeps, 66-88 steps against the 396-528 rotations in a
-// row of a cyclic order. The loop around the kernel is replayed from
-// CUDA graphs, so its launches cost about a microsecond each. A batch
+// matrix and a few KB, but each step is a chain of shuffles, sums and
+// (eigh) a broadcast, with a float64 division and square roots in the
+// rotation, then N independent updates of a and v. A 12 x 12 eigh from
+// LOBPCG takes 5-8 sweeps, 55-88 steps; the 4 x 4 SVD of its basis
+// extension 3 steps per sweep against the 6 rotations in a row of a
+// cyclic order. The loop around the kernels is replayed from
+// CUDA graphs, so their launches cost about a microsecond each. A batch
 // fills the card's SMs one warp per matrix, but LOBPCG's calls are batch
-// 1. The SVD's cyclic chain (n(n - 1)/2 rotations per sweep) is the next
-// to shorten the same way (ROADMAP).
+// 1.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -84,30 +95,6 @@ __device__ __forceinline__ double rotation_tan(double app, double aqq,
   if (fabs(theta) > 1e150) return 0.5 / theta;
   return (theta >= 0.0 ? 1.0 : -1.0) /
          (fabs(theta) + sqrt(theta * theta + 1.0));
-}
-
-// order[j] = index of the j-th largest key (ties by ascending index).
-__device__ void sort_descending(const double* key, int n, int* order) {
-  for (int j = 0; j < n; ++j) order[j] = j;
-  for (int j = 0; j < n; ++j) {
-    int best = j;
-    for (int i = j + 1; i < n; ++i) {
-      const double a = key[order[i]], b = key[order[best]];
-      if (a > b || (a == b && order[i] < order[best])) best = i;
-    }
-    const int t = order[j];
-    order[j] = order[best];
-    order[best] = t;
-  }
-}
-
-// -1 or +1: the sign that makes column c of m (n rows) have its
-// largest-magnitude entry positive.
-__device__ double column_sign(double (*m)[kMaxN + 1], int n, int c) {
-  int imax = 0;
-  for (int i = 1; i < n; ++i)
-    if (fabs(m[i][c]) > fabs(m[imax][c])) imax = i;
-  return m[imax][c] < 0.0 ? -1.0 : 1.0;
 }
 
 // Round-robin (circle) ordering of N indices, N even: step k (0 <= k <
@@ -272,64 +259,130 @@ __global__ void __launch_bounds__(32 * kWarps)
   }
 }
 
-__global__ void svd_kernel(const float* __restrict__ A, float* __restrict__ U,
-                           float* __restrict__ S, float* __restrict__ Vh,
-                           int batch, int n, unsigned long long* count) {
+// Step K of a sweep of the one-sided Jacobi SVD in the lane that owns
+// column `lane` of A (a) and of V (v). Lanes >= N hold zeros and partner
+// themselves. The lane takes its partner's columns by shuffle (all lanes
+// shuffle, outside any branch), sums alpha = |x|^2, beta = |y|^2 and gamma
+// = x . y in row order, and names the pair's squared norms with its lower
+// index first (app, aqq), so both lanes of a pair hold the same bits and
+// take the same decision and rotation. A pair that holds a zero column
+// (the dummy index n of an odd n, or a zero column of A) has gamma == 0
+// and is skipped. Each lane's new column is c x + sg y, sg = -s in the
+// lower lane and s in the upper one (x_p' = c x_p - s x_q, x_q' = s x_p +
+// c x_q). ops/small_linalg.svd_jacobi_ref does the same arithmetic.
+template <int N, int K>
+__device__ __forceinline__ void svd_step(int lane, int n, double (&a)[N],
+                                         double (&v)[N], bool& rotated) {
+  const int q = lane >= N ? lane : rr_partner(N, K, lane);
+  const bool low = lane < q;
+  double y[N], w[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    y[i] = __shfl_sync(0xffffffffu, a[i], q);
+    w[i] = __shfl_sync(0xffffffffu, v[i], q);
+  }
+  double sx = 0.0, sy = 0.0, gamma = 0.0;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    sx += a[i] * a[i];
+    sy += y[i] * y[i];
+    gamma += a[i] * y[i];
+  }
+  const double app = low ? sx : sy, aqq = low ? sy : sx;
+  if (fabs(gamma) <= 1e-15 * n * sqrt(app * aqq) || gamma == 0.0) return;
+  rotated = true;
+  const double t = rotation_tan(app, aqq, gamma);
+  const double c = 1.0 / sqrt(t * t + 1.0), s = t * c;
+  const double sg = low ? -s : s;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    a[i] = c * a[i] + sg * y[i];
+    v[i] = c * v[i] + sg * w[i];
+  }
+}
+
+template <int N, int K = 0>
+__device__ __forceinline__ void svd_sweep(int lane, int n, double (&a)[N],
+                                          double (&v)[N], bool& rotated) {
+  if constexpr (K < N - 1) {
+    svd_step<N, K>(lane, n, a, v, rotated);
+    svd_sweep<N, K + 1>(lane, n, a, v, rotated);
+  }
+}
+
+// Lane 0 of a warp whose singular values (sigma, by column) include a
+// zero: the left vectors (u, one per column, rows 0 .. n - 1) in the
+// sorted order (order[jj] = the column of the jj-th largest), each zero
+// one replaced by the first unit vector e that Gram-Schmidt (two passes
+// against every earlier column, then its norm) leaves with a norm above
+// 0.5, normalized. ops/small_linalg.svd_jacobi_ref repeats it.
+template <int N>
+__device__ __forceinline__ void complete_basis(double (*u)[N + 1],
+                                               const double* sigma,
+                                               const int* order, int n) {
+  for (int jj = 0; jj < n; ++jj) {
+    const int j = order[jj];
+    if (sigma[j] > 0.0) continue;
+    for (int e = 0; e < n; ++e) {
+      for (int i = 0; i < n; ++i) u[i][j] = i == e ? 1.0 : 0.0;
+      for (int pass = 0; pass < 2; ++pass) {
+        for (int kk = 0; kk < jj; ++kk) {
+          const int k = order[kk];
+          double d = 0.0;
+          for (int i = 0; i < n; ++i) d += u[i][k] * u[i][j];
+          for (int i = 0; i < n; ++i) u[i][j] -= d * u[i][k];
+        }
+      }
+      double norm = 0.0;
+      for (int i = 0; i < n; ++i) norm += u[i][j] * u[i][j];
+      norm = sqrt(norm);
+      if (norm > 0.5) {
+        for (int i = 0; i < n; ++i) u[i][j] /= norm;
+        break;
+      }
+    }
+  }
+}
+
+// One warp per matrix; n <= N = n rounded up to even. Lane j holds column
+// j of A and of V in registers (indexed statically: the steps are unrolled
+// over the compile-time N).
+template <int N>
+__global__ void __launch_bounds__(32 * kWarps)
+    svd_kernel(const float* __restrict__ A, float* __restrict__ U,
+               float* __restrict__ S, float* __restrict__ Vh, int batch,
+               int n, unsigned long long* count) {
   if (count != nullptr && blockIdx.x == 0 && threadIdx.x == 0)
     atomicAdd(count, 1ull);
-  __shared__ double sa[kWarps][kMaxN][kMaxN + 1];
-  __shared__ double sv[kWarps][kMaxN][kMaxN + 1];
-  __shared__ double ss[kWarps][kMaxN];
-  __shared__ int so[kWarps][kMaxN];
+  __shared__ double su[kWarps][N][N + 1];
+  __shared__ double ss[kWarps][N];
+  __shared__ int so[kWarps][N];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int b = blockIdx.x * kWarps + warp;
-  if (b >= batch) return;
-  double(*a)[kMaxN + 1] = sa[warp];
-  double(*v)[kMaxN + 1] = sv[warp];
+  if (b >= batch) return;  // the whole warp leaves together
   const float* Ab = A + static_cast<size_t>(b) * n * n;
 
+  double a[N], v[N];
   bool finite = true;
-  for (int idx = lane; idx < n * n; idx += 32) {
-    const int i = idx / n, j = idx % n;
-    const float x = Ab[idx];
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    float x = 0.0f;
+    if (lane < n && i < n) x = Ab[i * n + lane];
     finite = finite && isfinite(x);
-    a[i][j] = x;
-    v[i][j] = i == j ? 1.0 : 0.0;
+    a[i] = x;
+    v[i] = i == lane ? 1.0 : 0.0;
   }
   finite = __all_sync(0xffffffffu, finite);
-  __syncwarp();
 
-  // lane r owns row r of a and of v: no lane reads another's row until the
-  // sweep ends
   bool converged = false;
   for (int sweep = 0; finite && sweep < kMaxSweeps; ++sweep) {
     bool rotated = false;
-    for (int p = 0; p < n - 1; ++p) {
-      for (int q = p + 1; q < n; ++q) {
-        const double x = lane < n ? a[lane][p] : 0.0;
-        const double y = lane < n ? a[lane][q] : 0.0;
-        const double alpha = warp_sum(x * x), beta = warp_sum(y * y);
-        const double gamma = warp_sum(x * y);
-        if (fabs(gamma) <= 1e-15 * n * sqrt(alpha * beta) || gamma == 0.0)
-          continue;  // the same sums in every lane
-        rotated = true;
-        const double t = rotation_tan(alpha, beta, gamma);
-        const double c = 1.0 / sqrt(t * t + 1.0), s = t * c;
-        if (lane < n) {
-          a[lane][p] = c * x - s * y;
-          a[lane][q] = s * x + c * y;
-          const double vp = v[lane][p], vq = v[lane][q];
-          v[lane][p] = c * vp - s * vq;
-          v[lane][q] = s * vp + c * vq;
-        }
-      }
-    }
-    if (!rotated) {
+    svd_sweep<N>(lane, n, a, v, rotated);
+    if (!__any_sync(0xffffffffu, rotated)) {
       converged = true;
       break;
     }
   }
-  __syncwarp();
 
   float* Ub = U + static_cast<size_t>(b) * n * n;
   float* Sb = S + static_cast<size_t>(b) * n;
@@ -342,52 +395,52 @@ __global__ void svd_kernel(const float* __restrict__ A, float* __restrict__ U,
     if (lane < n) Sb[lane] = nanf("");
     return;
   }
-  for (int j = 0; j < n; ++j) {
-    const double x = lane < n ? a[lane][j] : 0.0;
-    const double norm = sqrt(warp_sum(x * x));
-    if (lane == 0) ss[warp][j] = norm;
+  double sq = 0.0;
+#pragma unroll
+  for (int i = 0; i < N; ++i) sq += a[i] * a[i];
+  const double sigma = sqrt(sq);
+  // this lane's singular value's place: descending, ties by ascending index
+  int rank = 0;
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    const double sj = __shfl_sync(0xffffffffu, sigma, j);
+    if (j < n && (sj > sigma || (sj == sigma && j < lane))) ++rank;
   }
-  __syncwarp();
-  if (lane == 0) {
-    sort_descending(ss[warp], n, so[warp]);
-    // left vectors: a's columns scaled to unit length; a zero column is
-    // completed by Gram-Schmidt from the unit vectors (in the sorted
-    // order, so the completed columns come last)
-    for (int jj = 0; jj < n; ++jj) {
-      const int j = so[warp][jj];
-      const double sigma = ss[warp][j];
-      if (sigma > 0.0) {
-        for (int i = 0; i < n; ++i) a[i][j] /= sigma;
-        continue;
-      }
-      for (int e = 0; e < n; ++e) {
-        for (int i = 0; i < n; ++i) a[i][j] = i == e ? 1.0 : 0.0;
-        for (int pass = 0; pass < 2; ++pass) {
-          for (int kk = 0; kk < jj; ++kk) {
-            const int k = so[warp][kk];
-            double d = 0.0;
-            for (int i = 0; i < n; ++i) d += a[i][k] * a[i][j];
-            for (int i = 0; i < n; ++i) a[i][j] -= d * a[i][k];
-          }
-        }
-        double norm = 0.0;
-        for (int i = 0; i < n; ++i) norm += a[i][j] * a[i][j];
-        norm = sqrt(norm);
-        if (norm > 0.5) {
-          for (int i = 0; i < n; ++i) a[i][j] /= norm;
-          break;
-        }
-      }
+  double u[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) u[i] = sigma > 0.0 ? a[i] / sigma : 0.0;
+  if (__any_sync(0xffffffffu, lane < n && sigma == 0.0)) {
+    if (lane < N) {
+#pragma unroll
+      for (int i = 0; i < N; ++i) su[warp][i][lane] = u[i];
+    }
+    if (lane < n) {
+      ss[warp][lane] = sigma;
+      so[warp][rank] = lane;
+    }
+    __syncwarp();
+    if (lane == 0) complete_basis<N>(su[warp], ss[warp], so[warp], n);
+    __syncwarp();
+    if (lane < N) {
+#pragma unroll
+      for (int i = 0; i < N; ++i) u[i] = su[warp][i][lane];
     }
   }
-  __syncwarp();
   if (lane < n) {
-    const int c = so[warp][lane];
-    Sb[lane] = static_cast<float>(ss[warp][c]);
-    const double sign = column_sign(v, n, c);
-    for (int i = 0; i < n; ++i) {
-      Vhb[lane * n + i] = static_cast<float>(sign * v[i][c]);
-      Ub[i * n + lane] = static_cast<float>(sign * a[i][c]);
+    // the right vector (column `lane` of V) with its largest-magnitude
+    // entry (the first on a tie) made positive; the left one follows
+    double vmax = v[0];
+#pragma unroll
+    for (int i = 1; i < N; ++i)
+      if (i < n && fabs(v[i]) > fabs(vmax)) vmax = v[i];
+    const double sign = vmax < 0.0 ? -1.0 : 1.0;
+    Sb[rank] = static_cast<float>(sigma);
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      if (i < n) {
+        Vhb[rank * n + i] = static_cast<float>(sign * v[i]);
+        Ub[i * n + rank] = static_cast<float>(sign * u[i]);
+      }
     }
   }
 }
@@ -429,9 +482,19 @@ int cslam_small_svd(const float* A, float* U, float* S, float* Vh, int batch,
                     int n, void* count, void* stream) {
   if (batch < 1 || n < 1 || n > kMaxN)
     return static_cast<int>(cudaErrorInvalidValue);
-  svd_kernel<<<blocks_for(batch), threads_for(batch), 0,
-               static_cast<cudaStream_t>(stream)>>>(
-      A, U, S, Vh, batch, n, static_cast<unsigned long long*>(count));
+  const dim3 grid(blocks_for(batch)), block(threads_for(batch));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  unsigned long long* c = static_cast<unsigned long long*>(count);
+  switch (n + (n & 1)) {  // odd n: one dummy column
+    case 2: svd_kernel<2><<<grid, block, 0, st>>>(A, U, S, Vh, batch, n, c); break;
+    case 4: svd_kernel<4><<<grid, block, 0, st>>>(A, U, S, Vh, batch, n, c); break;
+    case 6: svd_kernel<6><<<grid, block, 0, st>>>(A, U, S, Vh, batch, n, c); break;
+    case 8: svd_kernel<8><<<grid, block, 0, st>>>(A, U, S, Vh, batch, n, c); break;
+    case 10: svd_kernel<10><<<grid, block, 0, st>>>(A, U, S, Vh, batch, n, c); break;
+    case 12: svd_kernel<12><<<grid, block, 0, st>>>(A, U, S, Vh, batch, n, c); break;
+    case 14: svd_kernel<14><<<grid, block, 0, st>>>(A, U, S, Vh, batch, n, c); break;
+    default: svd_kernel<16><<<grid, block, 0, st>>>(A, U, S, Vh, batch, n, c); break;
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

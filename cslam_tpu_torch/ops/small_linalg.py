@@ -20,11 +20,16 @@ and the polar factor ``U Vh`` of ``_extend_basis``), and the comparisons
 on the card are too. A kernel's failure is not an exception: a matrix
 that does not converge, or holds a NaN or an infinity, gets NaN outputs.
 
-The eigh kernel runs a parallel (round-robin) Jacobi order in float64;
-:func:`eigh_jacobi_ref` repeats its arithmetic in torch float64 (rotation
-order, entry formula, convergence sums, sign and NaN rules), so that the
-tests can check that arithmetic on the CPU and ``chip_smoke.py`` can hold
-the kernel to it bit for bit. It is never on the main path: the plain
+Both kernels run Jacobi in float64 in a parallel (round-robin) order, one
+warp per matrix: eigh two-sided with a row of A per lane, the SVD
+one-sided (Hestenes) with a column of A per lane, each lane taking its
+partner's columns by shuffle and summing the pair's norms and dot product
+itself, with no reduction across lanes. :func:`eigh_jacobi_ref` and
+:func:`svd_jacobi_ref` repeat their arithmetic in torch float64 (pair
+order, entry and sum orders, skip and stop tests, correctly rounded square
+roots, sort, sign, completion and NaN rules), so that the tests can check
+that arithmetic on the CPU and ``chip_smoke.py`` can hold each kernel to
+its mirror bit for bit. The mirrors are never on the main path: the plain
 version a CPU tensor takes stays the library call.
 
 Each wrapper runs its plain version for a CPU tensor and, for a CUDA
@@ -38,6 +43,7 @@ own runs on the device, where every launch adds one to a per-device int64
 """
 from __future__ import annotations
 
+import math
 from typing import Dict
 
 import numpy as np
@@ -209,6 +215,132 @@ def eigh_jacobi_ref(A: torch.Tensor, max_sweeps: int = MAX_SWEEPS,
     w = w.reshape(A.shape[:-1]).to(A.device)
     V = V.reshape(A.shape).to(A.device)
     return (w, V, sweeps) if return_sweeps else (w, V)
+
+
+def _row_sums(prod: torch.Tensor) -> torch.Tensor:
+    """Each column of ``prod`` (``[b, N, N]``) summed over its rows in row
+    order, from zero, as a lane of the SVD kernel sums its column.
+    Returns ``[b, N]``."""
+    acc = torch.zeros((prod.shape[0], prod.shape[2]), dtype=prod.dtype,
+                      device=prod.device)
+    for i in range(prod.shape[1]):
+        acc = acc + prod[:, i, :]
+    return acc
+
+
+def _svd_step(a, v, partner, n):
+    """One parallel step of the one-sided Jacobi SVD: the rotations of the
+    column pairs (j, partner[j]). Returns the new ``a``, ``v`` and which
+    matrices rotated a pair (``[b]`` bool)."""
+    N = a.shape[-1]
+    q = torch.tensor(partner, device=a.device)
+    low = torch.arange(N, device=a.device) < q
+    y, w = a[:, :, q], v[:, :, q]
+    sx = _row_sums(a * a)
+    gamma = _row_sums(a * y)
+    sy = sx[:, q]       # the partner lane's own sum: the same bits
+    app, aqq = torch.where(low, sx, sy), torch.where(low, sy, sx)
+    rot = ~((gamma.abs() <= (1e-15 * n) * _sqrt(app * aqq))
+            | (gamma == 0.0))
+    t = _rotation_tan(app, aqq, gamma)
+    c = 1.0 / _sqrt(t * t + 1.0)
+    s = t * c
+    sg = torch.where(low, -s, s)
+    c, sg, keep = c[:, None, :], sg[:, None, :], rot[:, None, :]
+    return (torch.where(keep, c * a + sg * y, a),
+            torch.where(keep, c * v + sg * w, v), rot.any(dim=1))
+
+
+def _complete_basis(u: torch.Tensor, sigma: list, order: list) -> None:
+    """The SVD kernel's completion (``complete_basis``, lane 0 in scalar
+    float64): in the sorted ``order``, each column of ``u`` (``[n, n]``
+    float64, CPU) whose ``sigma`` is 0 becomes the first unit vector that
+    two Gram-Schmidt passes against every earlier column leave with a
+    norm above 0.5, normalized. In place."""
+    n = u.shape[0]
+    m = u.tolist()
+    for jj, j in enumerate(order):
+        if sigma[j] > 0.0:
+            continue
+        for e in range(n):
+            for i in range(n):
+                m[i][j] = 1.0 if i == e else 0.0
+            for _ in range(2):
+                for k in order[:jj]:
+                    d = 0.0
+                    for i in range(n):
+                        d += m[i][k] * m[i][j]
+                    for i in range(n):
+                        m[i][j] -= d * m[i][k]
+            norm = 0.0
+            for i in range(n):
+                norm += m[i][j] * m[i][j]
+            norm = math.sqrt(norm)
+            if norm > 0.5:
+                for i in range(n):
+                    m[i][j] /= norm
+                break
+    u.copy_(torch.tensor(m, dtype=u.dtype))
+
+
+def svd_jacobi_ref(A: torch.Tensor, max_sweeps: int = MAX_SWEEPS,
+                   return_sweeps: bool = False):
+    """The SVD kernel's own arithmetic in torch float64, for the tests and
+    ``chip_smoke.py`` (never on the main path): one-sided Jacobi over the
+    columns in the round-robin order over ``n`` rounded up to even (odd
+    ``n``: a zero dummy column, never rotated), each pair's norms and dot
+    product summed in row order, the skip test ``|gamma| <= 1e-15 n
+    sqrt(alpha beta)`` and the stop at a sweep with no rotation, the
+    singular values as the columns' norms, sorted descending (ties by
+    ascending index), the sign rule, the completion of a zero singular
+    value's left vector, and NaN outputs for a non-finite input or no
+    convergence within ``max_sweeps``. Its results equal the kernel's bit
+    for bit (IEEE float64 with correctly rounded square roots and
+    divisions, no fused multiply-add on either side). It runs on the CPU
+    and returns on ``A``'s device. With ``return_sweeps`` also the sweeps
+    each matrix ran, its last (rotation-free) one included (``[b]``
+    int64)."""
+    a32 = _batched("small svd", A).cpu()
+    b, n = a32.shape[0], a32.shape[-1]
+    N = n + n % 2
+    finite = torch.isfinite(a32).flatten(1).all(1)
+    a = torch.zeros((b, N, N), dtype=torch.float64)
+    a[:, :n, :n] = torch.where(finite[:, None, None], a32, 0.0).double()
+    v = torch.eye(N, dtype=torch.float64).expand(b, N, N).clone()
+    active, converged = finite.clone(), torch.zeros_like(finite)
+    sweeps = torch.zeros(b, dtype=torch.int64)
+    steps = _round_robin(N)
+    for _ in range(max_sweeps):
+        if not bool(active.any()):
+            break
+        rotated = torch.zeros_like(active)
+        a_new, v_new = a, v
+        for partner in steps:
+            a_new, v_new, rot = _svd_step(a_new, v_new, partner, n)
+            rotated |= rot
+        keep = active[:, None, None]
+        a, v = torch.where(keep, a_new, a), torch.where(keep, v_new, v)
+        sweeps += active.to(torch.int64)
+        converged |= active & ~rotated
+        active &= rotated
+    sigma = _sqrt(_row_sums(a * a))[:, :n]
+    order = torch.sort(sigma, dim=1, descending=True, stable=True).indices
+    an = a[:, :n, :n]
+    u = torch.where(sigma[:, None, :] > 0.0, an / sigma[:, None, :], 0.0)
+    for m in (converged & (sigma == 0.0).any(dim=1)).nonzero()[:, 0].tolist():
+        _complete_basis(u[m], sigma[m].tolist(), order[m].tolist())
+    vv = v[:, :n, :n]
+    imax = vv.abs().argmax(dim=1, keepdim=True)
+    sign = torch.where(vv.gather(1, imax) < 0.0, -1.0, 1.0).to(vv.dtype)
+    cols = order[:, None, :].expand(b, n, n)
+    S = sigma.gather(1, order).float()
+    U = (sign * u).gather(2, cols).float()
+    Vh = (sign * vv).gather(2, cols).transpose(1, 2).float()
+    for out in (U, S, Vh):
+        out[~converged] = float("nan")
+    U, Vh = (x.reshape(A.shape).to(A.device) for x in (U, Vh))
+    S = S.reshape(A.shape[:-1]).to(A.device)
+    return (U, S, Vh, sweeps) if return_sweeps else (U, S, Vh)
 
 
 def svd_ref(A: torch.Tensor):

@@ -513,7 +513,9 @@ def test_small_svd_matches_plain_version_on_card():
     singular values within 16 float32 eps of the largest, the product
     U diag(S) Vh and the polar factor U Vh (what LOBPCG's basis extension
     uses) within 1e-5, U and Vh orthonormal, also for a rank-deficient
-    block."""
+    block; and bit for bit against ``svd_jacobi_ref`` (its arithmetic in
+    torch float64, run on the CPU copy of the input), one matrix at a time
+    and as one batch of every 4 x 4 case."""
     from cslam_tpu_torch.ops import small_linalg as sl
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
@@ -538,6 +540,38 @@ def test_small_svd_matches_plain_version_on_card():
         assert torch.allclose(Vh @ Vh.T, eye, atol=1e-5)
         if float(Sr.min()) > 1e-3:
             assert torch.allclose(U @ Vh, Ur @ Vhr, atol=1e-5)
+        mirror = sl.svd_jacobi_ref(A.cpu())
+        assert all(torch.equal(x.cpu(), m) for x, m in zip((U, S, Vh), mirror))
+    batch = torch.from_numpy(np.stack([a for a in cases if a.shape[0] == 4]))
+    got = sl.svd(batch.cuda())
+    mirror = sl.svd_jacobi_ref(batch)
+    assert all(torch.equal(x.cpu(), m) for x, m in zip(got, mirror))
+
+
+@pytest.mark.cuda
+def test_small_svd_matches_jacobi_mirror_bit_for_bit_on_card():
+    """The round-robin one-sided Jacobi SVD kernel against
+    ``svd_jacobi_ref`` at n = 1 .. 16: Gaussian, clustered and graded
+    blocks and one with a zero column (the completion), one at a time and
+    as one batch per size."""
+    from cslam_tpu_torch.ops import small_linalg as sl
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    rng = np.random.default_rng(10)
+    for n in range(1, 17):
+        P, _ = np.linalg.qr(rng.standard_normal((n, n)))
+        Q, _ = np.linalg.qr(rng.standard_normal((n, n)))
+        zero = rng.standard_normal((n, n))
+        zero[:, n // 2] = 0.0
+        mats = np.stack([rng.standard_normal((n, n)),
+                         (P * (1.0 + 1e-4 * rng.standard_normal(n))) @ Q.T,
+                         (P * np.logspace(-6, 0, n)) @ Q.T,
+                         zero]).astype(np.float32)
+        for A in (mats[0], mats[3], mats):
+            got = sl.svd(torch.from_numpy(A).cuda())
+            want = sl.svd_jacobi_ref(torch.from_numpy(A))
+            assert all(torch.equal(x.cpu(), m)
+                       for x, m in zip(got, want)), n
 
 
 @pytest.mark.cuda

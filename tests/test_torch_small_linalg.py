@@ -9,6 +9,17 @@ chain + low-rank tier, on the CPU.
   eigenvalues within 16 float32 eps of max |lambda|, eigenvector overlaps
   >= 1 - 1e-4 where the gap to the neighbours is >= 1e-3 max |lambda|.
   Its NaN rules (a non-finite input, the sweep cap) and its order.
+- ``small_linalg.svd_jacobi_ref``, the float64 torch mirror of the
+  round-robin one-sided Jacobi SVD kernel (the card holds the kernel to it
+  bit for bit), against ``torch.linalg.svd`` and the JAX package's
+  ``jnp.linalg.svd`` at n = 1 .. 16 on seeded Gaussian, orthonormal-top,
+  clustered and graded blocks: singular values within 16 float32 eps of
+  the largest, the polar factor ``U Vh`` within 1e-5 where sigma_min >
+  1e-3 sigma_max, ``U`` and ``Vh`` orthonormal within 1e-5. Rank-deficient
+  blocks and the completion of a zero singular value's left vector, its
+  NaN and sign rules, its pair order for odd n, and the port's
+  ``lobpcg._extend_basis`` on the mirror against
+  ``jax.experimental.sparse.linalg._extend_basis``.
 - ``fiedler.woodbury_inverse`` (``Tinv x - Z (Z^T x)``, ``Z = Y L^-T``)
   against ``woodbury_inverse_ref`` (two triangular solves per apply), the
   JAX package's apply (``cho_solve`` on its own precompute) and a float64
@@ -22,7 +33,7 @@ chain + low-rank tier, on the CPU.
   so against it the limit is 1e-5 of max |Tinv x| (7e-7 measured).
 - A failed capacitance factorization still ends in a failed selection.
 
-A few seconds on one worker.
+About 13 s on one worker.
 """
 import jax
 import jax.numpy as jnp
@@ -150,6 +161,158 @@ def test_round_robin_order_meets_every_pair_once_per_sweep(N):
             assert q != j and partner[q] == j     # N/2 disjoint pairs
             seen.add((min(j, q), max(j, q)))
     assert len(seen) == N * (N - 1) // 2
+
+
+# -- the SVD mirror -----------------------------------------------------------
+
+def _svd_blocks(n, seed):
+    """Gaussian, the top block of an orthonormal 200 x n basis (what
+    ``_extend_basis`` decomposes), clustered and graded singular values."""
+    rng = np.random.default_rng(seed)
+    P, _ = np.linalg.qr(rng.standard_normal((n, n)))
+    Q, _ = np.linalg.qr(rng.standard_normal((n, n)))
+    X, _ = np.linalg.qr(rng.standard_normal((200, n)))
+    blocks = [rng.standard_normal((n, n)), X[:n],
+              (P * (1.0 + 1e-4 * rng.standard_normal(n))) @ Q.T,
+              (P * np.logspace(-6, 0, n)) @ Q.T]
+    return np.stack(blocks).astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def svd_cases():
+    """Each size's blocks and their mirror SVD, computed once."""
+    out = {}
+    for n in range(1, 17):
+        A = torch.from_numpy(_svd_blocks(n, 200 + n))
+        out[n] = (A, sl.svd_jacobi_ref(A, return_sweeps=True))
+    return out
+
+
+@pytest.mark.parametrize("n", range(1, 17))
+def test_svd_jacobi_ref_matches_torch_and_jax(svd_cases, n):
+    A, (U, S, Vh, sweeps) = svd_cases[n]
+    assert U.dtype == S.dtype == Vh.dtype == torch.float32
+    assert bool((sweeps < sl.MAX_SWEEPS).all())
+    Ur, Sr, Vhr = torch.linalg.svd(A)
+    ju, js, jvh = (torch.from_numpy(np.array(x))
+                   for x in jnp.linalg.svd(jnp.asarray(A.numpy())))
+    eye = torch.eye(n)
+    for b in range(A.shape[0]):
+        scale = float(Sr[b].max())
+        assert bool((S[b][:-1] >= S[b][1:]).all())
+        for u, s, vh in ((Ur[b], Sr[b], Vhr[b]), (ju[b], js[b], jvh[b])):
+            assert float((S[b] - s).abs().max()) <= 16 * _EPS * scale
+            if float(s.min()) > 1e-3 * scale:
+                assert float((U[b] @ Vh[b] - u @ vh).abs().max()) <= 1e-5
+        assert float((U[b].T @ U[b] - eye).abs().max()) <= 1e-5
+        assert float((Vh[b] @ Vh[b].T - eye).abs().max()) <= 1e-5
+        # each row of Vh has its largest-magnitude entry positive
+        idx = Vh[b].abs().argmax(dim=1)
+        assert bool((Vh[b][torch.arange(n), idx] > 0).all())
+
+
+def test_svd_jacobi_ref_rank_deficient_blocks_and_completion():
+    """A zero column, a zero block and two equal columns (rotated by
+    exactly 45 degrees, t = 1, so one of them becomes exactly zero) give
+    exact zero singular values, whose left vectors the completion makes
+    orthonormal (U stays orthogonal, A = U diag(S) Vh); a float32 rank-1
+    block gives tiny nonzero ones. The completion is deterministic: unit
+    vectors in order, Gram-Schmidt against the earlier columns."""
+    rng = np.random.default_rng(4)
+    zero_col = rng.standard_normal((4, 4)).astype(np.float32)
+    zero_col[:, 3] = 0.0
+    twin = rng.standard_normal((6, 6)).astype(np.float32)
+    twin[:, 4] = twin[:, 1]
+    rank1 = np.outer(rng.standard_normal(5), rng.standard_normal(5))
+    for a, zeros in ((zero_col, 1), (np.zeros((3, 3), np.float32), 3),
+                     (rank1.astype(np.float32), 0), (twin, 1)):
+        A = torch.from_numpy(a)
+        U, S, Vh = sl.svd_jacobi_ref(A)
+        n = a.shape[0]
+        eye = torch.eye(n)
+        assert int((S == 0.0).sum()) == zeros
+        assert float((U.T @ U - eye).abs().max()) <= 1e-5
+        assert float((Vh @ Vh.T - eye).abs().max()) <= 1e-5
+        assert float(((U * S) @ Vh - A).abs().max()) <= 1e-5 * max(
+            1.0, float(S.max()))
+        Sr = torch.linalg.svdvals(A)
+        assert float((S - Sr).abs().max()) <= 16 * _EPS * max(
+            float(Sr.max()), 1e-30)
+    U0, S0, Vh0 = sl.svd_jacobi_ref(torch.zeros(3, 3))
+    assert torch.equal(U0, torch.eye(3)) and torch.equal(Vh0, torch.eye(3))
+    # the zero column's left vector: e_0 with the other three projected
+    # out, normalized (its norm is well above 0.5 here); the zero column
+    # never rotates, so its right vector is +e_3
+    U, S, Vh = sl.svd_jacobi_ref(torch.from_numpy(zero_col))
+    assert torch.equal(Vh[3], torch.eye(4)[3])
+    rest = U[:, :3].double()
+    e0 = torch.eye(4, dtype=torch.float64)[:, 0]
+    want = e0 - rest @ (rest.T @ e0)
+    assert float(want.norm()) > 0.5
+    assert float((U[:, 3].double() - want / want.norm()).abs().max()) <= 1e-6
+
+
+def test_svd_jacobi_ref_nan_and_sign_rules():
+    """NaN outputs for a NaN or infinite input and at the sweep cap, the
+    batch's other matrices untouched (each matrix is one warp's); the
+    sign rule on a diagonal block, which needs no rotation."""
+    A = torch.from_numpy(_svd_blocks(12, 9))
+    U, S, Vh = sl.svd_jacobi_ref(A)
+    bad = A.clone()
+    bad[1, 5, 2] = float("nan")
+    bad[2, 0, 11] = float("inf")
+    Ub, Sb, Vhb = sl.svd_jacobi_ref(bad)
+    for b in (1, 2):
+        assert all(bool(x[b].isnan().all()) for x in (Ub, Sb, Vhb))
+    for b in (0, 3):
+        assert torch.equal(Ub[b], U[b]) and torch.equal(Sb[b], S[b])
+        assert torch.equal(Vhb[b], Vh[b])
+        one = sl.svd_jacobi_ref(A[b])
+        assert all(torch.equal(x, y[b]) for x, y in zip(one, (U, S, Vh)))
+    # a dense 12 x 12 block still rotates in its first sweep
+    Uc, Sc, Vhc = sl.svd_jacobi_ref(A[0], max_sweeps=1)
+    assert all(bool(x.isnan().all()) for x in (Uc, Sc, Vhc))
+    D = torch.diag(torch.tensor([3.0, -1.0, 2.0, 2.0]))
+    Ud, Sd, Vhd, sw = sl.svd_jacobi_ref(D, max_sweeps=1, return_sweeps=True)
+    assert int(sw) == 1 and Sd.tolist() == [3.0, 2.0, 2.0, 1.0]
+    perm = torch.eye(4)[[0, 2, 3, 1]]
+    assert torch.equal(Vhd, perm)
+    assert torch.equal(Ud, perm.T * torch.tensor([1.0, 1.0, 1.0, -1.0]))
+
+
+@pytest.mark.parametrize("n", [1, 3, 5, 7, 9, 11, 13, 15])
+def test_round_robin_order_meets_every_pair_once_for_odd_n(n):
+    """Odd n runs the order of N = n + 1 with a dummy index n: each sweep
+    meets every pair of real columns once, and each real column meets the
+    dummy (its rest step) once."""
+    steps = sl._round_robin(n + 1)
+    real, rest = set(), []
+    for partner in steps:
+        for j, q in enumerate(partner[:n]):
+            if q == n:
+                rest.append(j)
+            else:
+                real.add((min(j, q), max(j, q)))
+    assert len(real) == n * (n - 1) // 2
+    assert sorted(rest) == list(range(n))
+
+
+def test_extend_basis_on_the_mirror_matches_jax(monkeypatch):
+    """The port's ``_extend_basis`` with ``small_linalg.svd`` routed to the
+    kernel's mirror against ``jax.experimental.sparse.linalg._extend_basis``
+    (``jnp.linalg.svd``) on an orthonormal 200 x 4 block: within 1e-5, and
+    ``[X, h]`` orthonormal."""
+    from jax.experimental.sparse import linalg as jsl
+
+    from cslam_tpu_torch.ops import lobpcg
+    rng = np.random.default_rng(12)
+    X = np.linalg.qr(rng.standard_normal((200, 4)))[0].astype(np.float32)
+    monkeypatch.setattr(sl, "svd", sl.svd_jacobi_ref)
+    h = lobpcg._extend_basis(torch.from_numpy(X), 4)
+    want = torch.from_numpy(np.array(jsl._extend_basis(jnp.asarray(X), 4)))
+    assert float((h - want).abs().max()) <= 1e-5
+    basis = torch.cat([torch.from_numpy(X), h], dim=1)
+    assert float((basis.T @ basis - torch.eye(8)).abs().max()) <= 1e-5
 
 
 # -- the Woodbury apply -------------------------------------------------------
