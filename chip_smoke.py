@@ -36,7 +36,12 @@ Builds the hand-written kernels from the sources in the checkout (one
   CG block of ``solver._CG_BLOCK`` iterations plus two per LM iteration
   in each PCG solve; one per FW iteration plus one per selection) and
   captures (none after the warmup) counted; the small-eigensolver kernels
-  must run and no ``torch.linalg.eigh`` may see a CUDA tensor;
+  must run and no ``torch.linalg.eigh`` may see a CUDA tensor; the
+  mission runs with ``CSLAM_TPU_DUMP_PGO`` set, and part ``pgo_dumps``
+  loads every dumped graph (``np.load(allow_pickle=False)``, the JAX
+  package's keys and dtypes) and replays the largest through
+  ``tools/pgo_replay`` graphed and eagerly (the same rejected edges,
+  positions within 1e-2 m, no capture);
 * phase ``large_tiers`` — MAC at ``benchmarks/selection_bench.py``'s three
   tiers (5 x 100 poses / 100 candidates, 10 x 200 / 400, 10 x 500 / 1000:
   P = 512, 2048, 8192) through the port's ACM, lambda_2 of each selection
@@ -109,12 +114,14 @@ Builds the hand-written kernels from the sources in the checkout (one
   4 cross-scene pairs rejected, the flags equal to the CPU's and the
   outputs to the eager chunk's), its time graphed and eager, CUDA kernels,
   graph launches, idle share and the graph pool's bytes; ``mission``, 3
-  robots x 40 steps of the bench's mission through the lidar, detection
-  and back-end nodes (at least one verified inter-robot loop, robot 0's
+  robots x 40 steps of the bench's mission through
+  ``tools/lidar_e2e_scale.run_mission`` (the lidar, detection and
+  back-end nodes; at least one verified inter-robot loop, robot 0's
   optimized ATE <= odometry ATE + 0.05 m, every chunk a replay of a graph
-  the warmup captured, MAC's selection programs warmed as the bench warms
-  them and none captured on the main thread after that), with its spans
-  (a prefetch thread's as ``(bg)``) and MAC's captures and replays;
+  the warmup captured, the verification, MAC and PGO programs warmed as
+  the bench warms them and none captured on the main thread after that),
+  with its spans (a prefetch thread's as ``(bg)``) and its captures and
+  replays per program set;
 * phase ``visual`` — the visual (RGB-D / stereo) path at
   ``benchmarks/visual_e2e_scale_bench.py``'s widths: ``visual_verify``, one
   16-pair chunk at ``benchmarks/verification_bench.py``'s widths (512
@@ -126,10 +133,12 @@ Builds the hand-written kernels from the sources in the checkout (one
   with times graphed and eager, CUDA kernels, graph launches, idle share,
   peak memory and pool bytes; ``visual_mission``,
   3 robots x 40 steps of the bench's rendered mission through
-  ``RGBDFrontEnd`` -> ``DetectionFrontEnd`` (CosPlace, the visual bank on
-  K1) -> ``DecentralizedPGO`` (the C++ feature library loaded, at least one
+  ``tools/visual_e2e_scale.run_mission`` (``RGBDFrontEnd`` ->
+  ``DetectionFrontEnd`` (CosPlace, the visual bank on K1) ->
+  ``DecentralizedPGO``; the C++ feature library loaded, at least one
   verified inter-robot loop, robot 0's optimized ATE <= odometry ATE +
-  0.05 m, MAC as in the lidar mission); ``visual_stereo``, two ``StereoFrontEnd``s from
+  0.05 m, no capture after the warmup as in the lidar mission);
+  ``visual_stereo``, two ``StereoFrontEnd``s from
   ``make_map_manager`` exchanging a keyframe (the CPU's flags, within 0.12
   m of the truth), then the mission's stereo variant at 3 x 20 through the
   same node stack (the same limits);
@@ -154,6 +163,17 @@ Builds the hand-written kernels from the sources in the checkout (one
   with fixed edges, an optimized result and K1 launches, and has imported
   neither ``jax`` nor ``cslam_tpu``; the transport refuses a frame that
   holds a tensor);
+* phase ``gnc_sweep`` — ``tools/gnc_scenario_sweep`` at its quick tiers
+  (3 x 80 and 5 x 100 poses, 10 seeded scenarios with gross outliers),
+  each scenario graphed and eager after a back end's warmup of their GNC
+  tiers (the same rejected edges in every scenario, 0 missed outliers,
+  0 ATE regressions, false rejections no more than the JAX package's
+  CPU sweep, no capture);
+* phase ``scale`` — ``tools/lidar_e2e_scale.run_mission`` at the bench's
+  own size and pins: 5 robots x 210 keyframes, MAC and PGO tiers pinned
+  at 2,048, the port's warmup of exactly the reachable tiers (no capture
+  after it, at least one verified loop, robot 0's ATE bar, K1 and the
+  Woodbury tier's kernels launched);
 * phase ``mac_calls`` — MAC's calls one by one (``torch.profiler``: wall
   and device ms, CUDA kernels, copies to the host and host syncs per
   call): ``torch.linalg.eigh`` of the dense tier's deflated Laplacian and
@@ -2730,19 +2750,90 @@ def phase_swarm(results, failures, robots=4, keyframes=120):
                         "mac": mac}
 
 
+#: the JAX package's dtypes of a ``CSLAM_TPU_DUMP_PGO`` file's keys
+_DUMP_INDEX_KEYS = ("edge_i", "edge_j", "prior_idx")
+
+
+def _pgo_dump_replay(dump_dir, failures, tag="swarm_floored",
+                     device="cuda"):
+    """Part ``pgo_dumps``: the back end's ``CSLAM_TPU_DUMP_PGO`` files of a
+    mission, each loaded with ``np.load(allow_pickle=False)`` (the keys of
+    ``PoseGraphArrays``, int32 indices and float32 values, as the JAX
+    package writes them), then the largest graph replayed through
+    ``tools/pgo_replay`` on the card, graphed and eagerly. Limits: every
+    file's keys and dtypes; graphed and eager GNC reject the same robust
+    edges, their positions within ``_GNC_GRADUATION_LIMIT_M``; no capture
+    in the graphed replay (the mission's warmup captured its tier)."""
+    import numpy as np
+
+    from cslam_tpu_torch.tools import harness, pgo_replay
+    want = {k: "int32" if k in _DUMP_INDEX_KEYS else "float32"
+            for k in pgo_replay.FIELDS}
+    paths = sorted(Path(dump_dir).glob("*.npz"))
+    out = {"dumps": len(paths), "files": [p.name for p in paths[:3]]}
+    bad, sizes = [], []
+    for path in paths:
+        with np.load(path, allow_pickle=False) as z:
+            got = {k: z[k].dtype.name for k in z.files}
+            sizes.append((int(z["edge_valid"].sum()), path.name, path))
+        if got != want:
+            bad.append((path.name, got))
+    out["bad_files"] = bad[:3]
+    if not paths:
+        failures.append(f"{tag}: no PGO dump written")
+        return out
+    if bad:
+        failures.append(f"{tag}: dumps with other keys or dtypes {bad[:2]}")
+    _, name, path = max(sizes)
+    a = pgo_replay.load(path, device)
+    before = harness.graph_counts()
+    graphed, res_g = pgo_replay.replay(a, warm=1)
+    graphs = harness.graph_delta(before)
+    eager, res_e = pgo_replay.replay(a, eager=True, warm=0)
+    valid = a.node_valid > 0
+    dist = float((res_g.poses[valid, :3, 3] - res_e.poses[valid, :3, 3])
+                 .norm(dim=-1).max())
+    rej_g = pgo_replay.rejected_edges(a, res_g)
+    rej_e = pgo_replay.rejected_edges(a, res_e)
+    out.update({"replayed": name, **pgo_replay.graph_row(a),
+                "graphed": graphed, "eager": eager,
+                "rejected_graphed": rej_g[:8], "rejected_eager": rej_e[:8],
+                "max_position_diff_m": dist,
+                "limit_m": _GNC_GRADUATION_LIMIT_M,
+                "replay_captures": graphs["captures"]})
+    print(f"  pgo_dumps ({tag}) " + json.dumps(out, default=str))
+    if rej_g != rej_e:
+        failures.append(f"{tag}: graphed and eager replays of {name} reject "
+                        f"{rej_g[:8]} and {rej_e[:8]}")
+    if not dist <= _GNC_GRADUATION_LIMIT_M:
+        failures.append(f"{tag}: graphed and eager replays of {name} "
+                        f"{dist} m apart")
+    if graphs["captures"]:
+        failures.append(f"{tag}: {graphs['captures']} captures replaying "
+                        f"{name} ({graphs['by_set']})")
+    return out
+
+
 def phase_swarm_floored(results, failures, robots=4, keyframes=120):
     """The swarm mission with the tiers pinned as deployments pin them
     (``frontend.mac_p_floor``, ``backend.pgo_np_floor`` and
     ``backend.pgo_ne_floor`` at 1024): every selection runs the
     Woodbury/LOBPCG MAC tier, every optimization the coarse-corrected PCG
     tier, on the card, its step programs captured by the back end's
-    warmup."""
+    warmup; with ``CSLAM_TPU_DUMP_PGO`` set, then the dumps replayed
+    (:func:`_pgo_dump_replay`)."""
+    import tempfile
+
     from cslam_tpu_torch.pgo import solver
     from cslam_tpu_torch.selection import mac
-    wall, launches, spans, per_robot, count = _swarm_run(
-        "swarm_floored", failures, robots, keyframes,
-        {"frontend.mac_p_floor": 1024, "backend.pgo_np_floor": 1024,
-         "backend.pgo_ne_floor": 1024, **_SWARM_WARMUP})
+    from cslam_tpu_torch.tools import harness
+    with tempfile.TemporaryDirectory(prefix="cslam_pgo_dump_") as dumps:
+        wall, launches, spans, per_robot, count = _swarm_run(
+            "swarm_floored", failures, robots, keyframes,
+            {"frontend.mac_p_floor": 1024, "backend.pgo_np_floor": 1024,
+             "backend.pgo_ne_floor": 1024, **_SWARM_WARMUP},
+            during=lambda: harness.dump_pgo(dumps))
+        replay = _pgo_dump_replay(dumps, failures)
     tiers = sorted(mac._SEEN_TIERS)
     print(f"  MAC tiers seen {tiers}")
     pgo = _pgo_record("swarm_floored", count, spans, failures)
@@ -2756,7 +2847,7 @@ def phase_swarm_floored(results, failures, robots=4, keyframes=120):
         failures.append("swarm_floored: a PGO solve on the dense tier")
     results["swarm_floored"] = {"launches": launches, "wall_s": wall,
                                 "spans": spans, "robots": per_robot,
-                                **pgo, "mac": mac_rec}
+                                **pgo, "mac": mac_rec, "pgo_dumps": replay}
 
 
 # -- phase mac_replay (not in the default run) -------------------------------
@@ -3130,38 +3221,15 @@ _ROT_TOL_DEG, _TRANS_TOL_M = 1.0, 0.1     # verify: against ground truth
 
 def _scene_cloud(seed, n):
     """``benchmarks/lidar_e2e_scale_bench.py``'s structured scene: two
-    walls, ground scatter and five pillars (the pillars pin the ICP)."""
-    import numpy as np
-    rng = np.random.default_rng(seed)
-    a1, a2 = rng.uniform(0, 2 * np.pi, 2)
-    d1, d2 = rng.uniform(6, 18, 2)
-    n3 = n // 3
-    wall1 = np.stack([np.cos(a1) * d1 + rng.uniform(-6, 6, n3),
-                      np.sin(a1) * d1 + rng.normal(0, 0.1, n3),
-                      rng.uniform(0, 3, n3)], 1)
-    wall2 = np.stack([np.cos(a2) * d2 + rng.normal(0, 0.1, n3),
-                      np.sin(a2) * d2 + rng.uniform(-6, 6, n3),
-                      rng.uniform(0, 2, n3)], 1)
-    rest = n - 2 * n3
-    ground = np.stack([rng.uniform(-20, 20, rest // 2),
-                       rng.uniform(-20, 20, rest // 2),
-                       rng.uniform(-0.2, 0.2, rest // 2)], 1)
-    m = rest - rest // 2
-    centers = rng.uniform(-15, 15, (5, 2))
-    which = rng.integers(0, 5, m)
-    pillars = np.stack([centers[which, 0] + rng.normal(0, 0.08, m),
-                        centers[which, 1] + rng.normal(0, 0.08, m),
-                        rng.uniform(0, 4, m)], 1)
-    return np.concatenate([wall1, wall2, ground, pillars]).astype(np.float32)
+    walls, ground scatter and five pillars (the pillars pin the ICP), as
+    ``tools/lidar_e2e_scale.scene_cloud`` draws it."""
+    from cslam_tpu_torch.tools.lidar_e2e_scale import scene_cloud
+    return scene_cloud(seed, n)
 
 
 def _pose_at(x, y, yaw=0.0):
-    import numpy as np
-    T = np.eye(4)
-    T[:3, :3] = [[np.cos(yaw), -np.sin(yaw), 0],
-                 [np.sin(yaw), np.cos(yaw), 0], [0, 0, 1.0]]
-    T[:3, 3] = [x, y, 0]
-    return T
+    from cslam_tpu_torch.tools.harness import pose_xyz_yaw
+    return pose_xyz_yaw(x, y, 0.0, yaw)
 
 
 def _observe(scene, pose, rng):
@@ -3320,47 +3388,6 @@ def _verify_pairs(rng):
                                                                 0.7), rng),
                                        0.4)))
     return pairs, truth
-
-
-def _mission_mac_warmup(det, robots, steps):
-    """MAC's selection programs warmed as
-    ``benchmarks/{lidar,visual}_e2e_scale_bench.py`` warm the JAX
-    package's before their missions: every tier of
-    ``selection_tier_grid(robots * steps, 2048)`` with the detection
-    node's MAC keywords and its selector's FW iteration cap."""
-    from cslam_tpu_torch.selection import mac
-    kwargs = mac.mac_kwargs_from_params(det.params)
-    for p, e in mac.selection_tier_grid(robots * steps, 2048,
-                                        e_floor=kwargs["e_floor"],
-                                        p_floor=kwargs["p_floor"]):
-        mac.warmup_selection_tier(
-            p, e, max_iters=det.lcm.candidate_selector.max_iters,
-            device="cuda", **kwargs)
-
-
-def _mac_graph_counts():
-    """(captures, captures off the main thread, replays) of MAC's two
-    selection program sets."""
-    from cslam_tpu_torch.selection import mac
-    return {g.name: (g.captures, g.captures_bg, g.replays)
-            for g in (mac.DENSE_FW_GRAPHS, mac.WOODBURY_FW_GRAPHS)}
-
-
-def _mac_mission_graphs(before, tag, failures):
-    """MAC's selection programs in a mission since ``before`` (a
-    :func:`_mac_graph_counts`): captures, those made by prefetch threads
-    (the next tier, in the background, as the JAX package compiles it),
-    replays. Limit: no capture on the main thread, whose selections the
-    warmup covers."""
-    after = _mac_graph_counts()
-    delta = {k: dict(zip(("captures", "captures_bg", "replays"),
-                         (a - b for a, b in zip(after[k], before[k]))))
-             for k in after}
-    main = sum(d["captures"] - d["captures_bg"] for d in delta.values())
-    if main:
-        failures.append(f"{tag}: {main} MAC program captures on the main "
-                        f"thread after the warmup ({delta})")
-    return delta
 
 
 def _syncs_in(fn):
@@ -3542,159 +3569,81 @@ def _lidar_verify(failures, device="cuda"):
     return out
 
 
+def _mission_checks(tag, out, failures, device="cuda"):
+    """The limits of a mission run by the scale tools
+    (``tools/{lidar,visual}_e2e_scale.run_mission``): at least one
+    verified inter-robot loop; robot 0's optimized ATE <= its odometry ATE
+    + 0.05 m; on the card K1 launched and no CUDA graph captured on the
+    main thread after the warmup (verification tiers, PGO and MAC
+    programs; a MAC prefetch thread's captures are reported)."""
+    if out["inter_robot_loops"] < 1:
+        failures.append(f"{tag}: no verified inter-robot loop")
+    if not out["ate_optimized_m"] <= out["ate_odometry_m"] + 0.05:
+        failures.append(f"{tag}: optimized ATE {out['ate_optimized_m']} > "
+                        f"odometry ATE {out['ate_odometry_m']} + 0.05")
+    if device == "cpu":
+        return
+    if out["k1_launches"] < 1:
+        failures.append(f"{tag}: K1 not launched")
+    if out["captures_after_warmup"]:
+        failures.append(f"{tag}: {out['captures_after_warmup']} graph "
+                        f"captures after the warmup "
+                        f"({out['graphs']['by_set']})")
+
+
+def _print_mission(label, out):
+    """The mission's report (its span table was printed by the tool)."""
+    print(f"  {label} " + json.dumps(
+        {k: v for k, v in out.items() if k not in ("spans", "nodes")}))
+
+
 def _lidar_mission(failures, robots=3, steps=40, device="cuda",
                    points=4096, scenes=40, drain=60):
-    """Part ``mission``: ``benchmarks/lidar_e2e_scale_bench.py``'s mission
-    (its widths: 4096 points per scan, 40 scenes, voxel 0.4 m, pad 1024,
-    pair chunks up to 8, 20 x 60 descriptors and 10 candidates,
-    registration_min_inliers 40, similarity_threshold 0.7) through the
-    port's nodes on the card, at a reduced depth (``robots`` x ``steps``;
-    the bench runs 5 x 210), the MAC and PGO tier floors at their config
-    defaults, and the scan-context banks on the fused stage 1 (opt-in,
-    ``bank_initial_capacity`` 4096) so that every search goes through K1.
-    Limits: at least one verified inter-robot loop; robot 0's optimized
-    ATE <= its odometry ATE + 0.05 m."""
-    import numpy as np
-    import torch
+    """Part ``mission``: ``tools/lidar_e2e_scale.run_mission``, the twin of
+    ``benchmarks/lidar_e2e_scale_bench.py`` (its widths: 4096 points per
+    scan, 40 scenes, voxel 0.4 m, pad 1024, pair chunks up to 8, 20 x 60
+    descriptors and 10 candidates, registration_min_inliers 40,
+    similarity_threshold 0.7), on the card at a reduced depth (``robots``
+    x ``steps``; the bench runs 5 x 210, phase ``scale``) with the MAC and
+    PGO tier floors at their config defaults; the scan-context banks on
+    the fused stage 1, so that every search goes through K1. Limits
+    (:func:`_mission_checks`): a verified loop, the ATE bar, K1 launched,
+    no capture after the warmup; every verification chunk a replay, and
+    the warmup's verification graphs one per pair tier. The mission dumps
+    its aggregate graphs (``CSLAM_TPU_DUMP_PGO``), whose largest is
+    replayed graphed and eagerly (:func:`_pgo_dump_replay`)."""
+    import tempfile
 
-    from cslam_tpu_torch.config import CslamConfig
-    from cslam_tpu_torch.ops import nns
-    from cslam_tpu_torch.runtime import (DecentralizedPGO, DetectionFrontEnd,
-                                         LidarFrontEnd, MessageBus,
-                                         RobotContext, VirtualClock)
-    from cslam_tpu_torch.types import Odometry
-    from cslam_tpu_torch.utils import profiling
-    bus, clock = MessageBus(), VirtualClock()
-    nodes = []
-    for rid in range(robots):
-        cfg = CslamConfig(robot_id=rid, max_nb_robots=robots)
-        f = cfg.frontend
-        f.sensor_type = "lidar"
-        f.global_descriptor_technique = "scancontext"
-        f.similarity_threshold = 0.7
-        f.keyframe_generation_ratio_distance = 0.5
-        f.voxel_size = 0.4
-        f.registration_min_inliers = 40
-        f.inter_robot_detection_period_sec = 3.0
-        f.detection_publication_period_sec = 1.0
-        f.max_candidate_pool = 2048
-        f.harvest_ready_gate = True
-        f.scancontext_fused_stage1 = True
-        f.bank_initial_capacity = 4096
-        cfg.backend.pose_graph_optimization_start_period_ms = 30000
-        cfg.neighbor_management.enable_neighbor_monitoring = False
-        ctx = RobotContext(bus, clock, rid, cfg.flatten())
-        nodes.append((ctx, LidarFrontEnd(ctx, device=device),
-                      DetectionFrontEnd(ctx, device=device),
-                      DecentralizedPGO(ctx, synchronous_optimization=True,
-                                       device=device)))
-    world = [_scene_cloud(1000 + s, points) for s in range(scenes)]
-    scene_pose = [_pose_at(7.0 * (s % 8), 7.0 * (s // 8))
-                  for s in range(scenes)]
-    world = [w @ p[:3, :3].T + p[:3, 3] for w, p in zip(world, scene_pose)]
-    rng = np.random.default_rng(3)
-    gt = {r: [] for r in range(robots)}
-    drifted = {r: [] for r in range(robots)}
-    for r in range(robots):
-        cur = None
-        for i in range(steps):
-            s = (i + 5 * r) % scenes
-            p = scene_pose[s] @ _pose_at(0.3 * r, 0.2 * r, yaw=0.1 * r)
-            gt[r].append((s, p))
-            if cur is None:
-                cur = p.copy()
-            else:
-                z = np.linalg.inv(gt[r][i - 1][1]) @ p
-                z[:3, 3] += rng.normal(scale=0.05, size=3)
-                cur = cur @ z
-            drifted[r].append(cur.copy())
-    observed = {(r, i): _observe(world[gt[r][i][0]], gt[r][i][1], rng)
-                for r in range(robots) for i in range(steps)}
     from cslam_tpu_torch.ops import registration as reg
-    tiers = (1, 2, 4, 8)
-    nodes[0][1].warmup(pair_tiers=tiers)
-    _mission_mac_warmup(nodes[0][2], robots, steps)
-    _sync()
-    warmed = reg.VERIFY_GRAPHS.captures
-    if warmed != len(tiers):
-        failures.append(f"lidar mission: {warmed} verification graphs "
-                        f"after the warmup of tiers {tiers}")
-    graphs_before = _graph_counts()
-    mac_before = _mac_graph_counts()
-    profiling.reset_spans()
-    nns.launches = 0
-    t0 = time.perf_counter()
-    for i in range(steps):                     # the main path
-        for r in range(robots):
-            nodes[r][1].lidar_callback(observed[(r, i)],
-                                       Odometry(pose=drifted[r][i]))
-        clock.advance(1.0)
-        for ctx, *_ in nodes:
-            ctx.poll_timers()
-        bus.deliver()
-    for _ in range(drain):
-        clock.advance(1.0)
-        for ctx, *_ in nodes:
-            ctx.poll_timers()
-        bus.deliver()
-    _sync()
-    wall = time.perf_counter() - t0
-    launches = nns.launches
-    be0 = nodes[0][3]
-    keyframes = sum(n[1].nb_local_keyframes for n in nodes)
-    loops = sum(len(v) for v in be0.inter_robot_loop_closures.values())
-    est = {k[1]: p for k, p in be0.current_pose_estimates.items()
-           if k[0] == 0}
-
-    def rmse(poses):
-        return float(np.sqrt(np.mean([np.sum(
-            (poses[i][:3, 3] - gt[0][i][1][:3, 3]) ** 2) for i in poses])))
-    counters = profiling.counters()
-    spans = {k: v for k, v in profiling.spans().items()
-             if k.split(".")[0] in ("lidar", "verify", "lcd", "nns", "mac")
-             or k == "pgo.optimize"}
-    chunks = int(spans.get("verify.dispatch", {}).get("count", 0))
-    graphs = _graph_delta(graphs_before, "lidar mission", failures, chunks)
-    graphs["mac"] = _mac_mission_graphs(mac_before, "lidar mission",
-                                        failures)
-    out = {"robots": robots, "steps": steps, "scenes": scenes,
-           "points": points, "drain_steps": drain,
-           "cuts": {"robots": f"{robots} (bench 5)",
-                    "steps": f"{steps} (bench 210)",
-                    "tier floors": "config defaults (bench pins MAC mf/P/E "
-                                   "and PGO np/ne at 2048)",
-                    "warmup": "the verification graphs of tiers "
-                              f"{tiers} at pad 1024, MAC's selection "
-                              "programs as the bench warms them"},
-           "wall_s": wall, "keyframes": keyframes,
-           "verify_chunks": chunks, "graphs_warmed": warmed,
-           "graphs": graphs,
-           "verify_batch_s": spans.get("lidar.verify_batch", {}).get(
-               "total_s"),
-           "keyframes_per_s": keyframes / wall,
-           "sim_s": float(steps + drain),
-           "real_time_factor": (steps + drain) / wall,
-           "inter_robot_loops": loops,
-           "optimizations": be0.optimization_count,
-           "ate_odometry_m": rmse({i: drifted[0][i] for i in range(steps)}),
-           "ate_optimized_m": rmse(est) if est else float("nan"),
-           "k1_launches": launches,
-           "verify_pairs": counters.get("verify.pairs", 0),
-           "icp_gate_pass": counters.get("verify.icp_gate_pass", 0),
-           "spans": spans}
-    out["icp_gate_pass_rate"] = (out["icp_gate_pass"] / out["verify_pairs"]
-                                 if out["verify_pairs"] else None)
-    print(profiling.report())
-    print("  mission " + json.dumps({k: v for k, v in out.items()
-                                     if k != "spans"}))
-    if loops < 1:
-        failures.append("lidar mission: no verified inter-robot loop")
-    if not out["ate_optimized_m"] <= out["ate_odometry_m"] + 0.05:
-        failures.append(f"lidar mission: optimized ATE "
-                        f"{out['ate_optimized_m']} > odometry ATE "
-                        f"{out['ate_odometry_m']} + 0.05")
-    if launches < 1:
-        failures.append("lidar mission: K1 not launched")
+    from cslam_tpu_torch.tools import lidar_e2e_scale
+    with tempfile.TemporaryDirectory(prefix="cslam_pgo_dump_") as dumps:
+        out = lidar_e2e_scale.run_mission(robots, steps, scenes, points,
+                                          device, pins=False, drain=drain,
+                                          dump_dir=dumps)
+        out["pgo_dumps"] = _pgo_dump_replay(dumps, failures, "lidar mission",
+                                            device)
+    out.pop("nodes")
+    out["cuts"] = {"robots": f"{robots} (bench 5)",
+                   "steps": f"{steps} (bench 210)",
+                   "tier floors": "config defaults (bench pins MAC mf/P/E "
+                                  "and PGO np/ne at 2048: phase scale)"}
+    chunks = int(out["spans"].get("verify.dispatch", {}).get("count", 0))
+    verify = out["graphs"]["by_set"][reg.VERIFY_GRAPHS.name]
+    out["verify_chunks"] = chunks
+    out["graphs_warmed"] = reg.VERIFY_GRAPHS.captures - verify["captures"]
+    out["verify_batch_s"] = out["spans"].get("lidar.verify_batch", {}).get(
+        "total_s")
+    _print_mission("mission", out)
+    _mission_checks("lidar mission", out, failures, device)
+    if device == "cpu":         # no graph: the chunks run eagerly
+        return out
+    if out["graphs_warmed"] != 4:
+        failures.append(f"lidar mission: {out['graphs_warmed']} "
+                        "verification graphs after the warmup of tiers "
+                        "(1, 2, 4, 8)")
+    if verify["replays"] < chunks:
+        failures.append(f"lidar mission: {verify['replays']} graph replays "
+                        f"for {chunks} chunks")
     return out
 
 
@@ -3708,6 +3657,100 @@ def phase_lidar(results, failures, robots=3, steps=40):
     out["mission"] = _lidar_mission(failures, robots, steps)
 
 
+# -- phases scale and gnc_sweep -----------------------------------------------
+
+#: the JAX package's quick sweep (``benchmarks/gnc_scenario_sweep.py
+#: --quick``) on the CPU, its summary line (PERF.md §6): the bar
+#: the port's sweep is held to (no JAX runs here)
+_JAX_QUICK_SWEEP = {"scenarios": 10, "false_rejected": 0,
+                    "missed_outliers": 0, "ate_regressions": 0}
+
+
+def phase_scale(results, failures, robots=5, steps=210):
+    """``tools/lidar_e2e_scale.run_mission`` at the bench's own size and
+    pins (5 x 210 keyframes, 40 scenes of 4,096 points; MAC's mf, P and E
+    floors and PGO's pose and edge floors at 2,048, the bounded candidate
+    pool; the port's warmup of exactly the tiers those pins reach). Limits:
+    :func:`_mission_checks` (a verified loop, the ATE bar, K1 launched, no
+    capture after the warmup) and the Woodbury tier's kernels (E1, E2, the
+    WHILE node) launched."""
+    from cslam_tpu_torch.tools import lidar_e2e_scale
+    out = lidar_e2e_scale.run_mission(robots, steps, device="cuda",
+                                      pins=True)
+    out.pop("nodes")
+    out["cuts"] = {} if (robots, steps) == (5, 210) else {
+        "robots": f"{robots} (bench 5)", "steps": f"{steps} (bench 210)"}
+    _print_mission("scale", out)
+    _mission_checks("scale mission", out, failures)
+    small = out["small_linalg_launches"]
+    if not (small["eigh"] and small["svd"] and out["while_launches"]):
+        failures.append(f"scale mission: the Woodbury tier's kernels did "
+                        f"not run ({small}, {out['while_launches']} while "
+                        "launches)")
+    results["scale"] = out
+
+
+def _sweep_tiers(tiers):
+    """The distinct (pose tier, edge tier) of the sweep's graphs."""
+    import numpy as np
+
+    from cslam_tpu_torch.tools import gnc_scenario_sweep as sweep
+    shapes = set()
+    for (nr, npo, le, _, intra, _), n_out, seed in sweep.scenarios(tiers):
+        graph, *_ = sweep.build_scenario(
+            np.random.default_rng(1000 * seed + n_out), nr, npo, le, n_out,
+            intra)
+        a = graph.to_arrays(device="cpu")
+        shapes.add((a.num_nodes, a.num_edges))
+    return sorted(shapes)
+
+
+def phase_gnc_sweep(results, failures):
+    """``tools/gnc_scenario_sweep`` at its ``QUICK_TIERS`` (3 x 80 and 5 x
+    100 poses, 10 scenarios) on the card, each scenario graphed and eager,
+    after a back end's warmup of the sweep's GNC tiers. Limits: graphed
+    and eager reject the same edges in every scenario; 0 missed outliers
+    and 0 ATE regressions in each mode; false rejections no more than the
+    JAX package's CPU sweep of the same scenarios; no capture after the
+    warmup."""
+    from cslam_tpu_torch.runtime import (DecentralizedPGO, MessageBus,
+                                         RobotContext, VirtualClock)
+    from cslam_tpu_torch.tools import gnc_scenario_sweep as sweep
+    from cslam_tpu_torch.tools import harness
+    t0 = time.perf_counter()
+    backend = DecentralizedPGO(RobotContext(MessageBus(), VirtualClock(), 0, {
+        "robot_id": 0, "max_nb_robots": 1}), synchronous_optimization=True,
+        device="cuda")
+    shapes = _sweep_tiers(sweep.QUICK_TIERS)
+    for np_tier, ne_tier in shapes:
+        backend.warmup_tier(np_tier, ne_tier)
+    _sync()
+    warm_s = time.perf_counter() - t0
+    before = harness.graph_counts()
+    res = sweep.sweep(sweep.QUICK_TIERS, "cuda", ("graphed", "eager"),
+                      emit=lambda line: print("  gnc_sweep " + line))
+    graphs = harness.graph_delta(before)
+    out = {"tiers": "QUICK_TIERS", "warmed_tiers": shapes, "warmup_s": warm_s,
+           "summary": res["summary"], "same_rejected": res["same_rejected"],
+           "captures": graphs["captures"], "jax_cpu": _JAX_QUICK_SWEEP,
+           "cuts": {}}
+    print("  gnc_sweep " + json.dumps(out))
+    if not all(res["same_rejected"]) or not res["same_rejected"]:
+        failures.append(f"gnc_sweep: graphed and eager reject other edges "
+                        f"({res['same_rejected']})")
+    for mode, totals in res["summary"].items():
+        if totals["missed_outliers"] or totals["ate_regressions"]:
+            failures.append(f"gnc_sweep ({mode}): {totals}")
+        if totals["false_rejected"] > _JAX_QUICK_SWEEP["false_rejected"]:
+            failures.append(f"gnc_sweep ({mode}): {totals['false_rejected']} "
+                            "false rejections, the JAX package's CPU sweep "
+                            f"{_JAX_QUICK_SWEEP['false_rejected']}")
+    if graphs["captures"]:
+        failures.append(f"gnc_sweep: {graphs['captures']} captures after "
+                        f"the warmup ({graphs['by_set']})")
+    results["gnc_sweep"] = out
+
+
 # -- phase visual -----------------------------------------------------------
 # ``benchmarks/visual_e2e_scale_bench.py``'s frames and camera
 _VIS_W, _VIS_H = 320, 240
@@ -3716,27 +3759,12 @@ _VIS_ROT_TOL_DEG, _VIS_TRANS_TOL_M = 1.0, 0.05   # visual_verify: truth
 
 
 def _vis_scene(seed, n=None, size=(_VIS_W, _VIS_H)):
-    """``visual_e2e_scale_bench.make_scene``: a textured landmark field with
-    a scene-distinct global appearance (background ramp, ambient level,
-    texture band, stamp size and count), so that untrained GeM pooling
-    separates scenes. Returns (points, textures, background, half size);
-    the background is ``size`` = (width, height) pixels."""
-    import numpy as np
-    rng = np.random.default_rng(seed)
-    if n is None:
-        n = int(rng.integers(60, 220))
-    pts = np.stack([rng.uniform(-5, 5, n), rng.uniform(-3, 3, n),
-                    rng.uniform(4, 11, n)], axis=1)
-    a0, a1 = rng.integers(0, 150, 2)
-    width, height = size
-    bg = ((a0 + (a1 - a0) * np.linspace(0, 1, height))[:, None]
-          * np.ones((1, width)))
-    lo = int(rng.integers(30, 150))
-    hi = lo + int(rng.integers(40, 105))
-    half = int(rng.integers(3, 8))
-    tex = rng.integers(lo, hi, (n, 2 * half + 1, 2 * half + 1),
-                       dtype=np.int64)
-    return pts, tex, bg.astype(np.uint8), half
+    """``visual_e2e_scale_bench.make_scene`` (``tools/visual_e2e_scale``):
+    a textured landmark field with a scene-distinct global appearance.
+    Returns (points, textures, background of ``size`` = (width, height)
+    pixels, half size)."""
+    from cslam_tpu_torch.tools.visual_e2e_scale import make_scene
+    return make_scene(seed, n, size)
 
 
 def _vis_test_world(seed, n=120):
@@ -3751,39 +3779,17 @@ def _vis_test_world(seed, n=120):
 
 
 def _vis_render(scene, pose, cam=None):
-    """``visual_e2e_scale_bench.render``: painter's-algorithm stamps in the
-    camera at ``pose`` (``cam``: fx, fy, cx, cy; the bench's by default),
-    at the size of the scene's background; returns (grayscale image,
-    metric depth)."""
-    import numpy as np
-    pts, tex, bg, half = scene
-    fx, fy, cx, cy = ((cam or _VIS_CAM)[k] for k in ("fx", "fy", "cx", "cy"))
-    height, width = bg.shape
-    img = bg.copy()
-    dep = np.zeros((height, width), np.float32)
-    inv = np.linalg.inv(pose)
-    cpts = pts @ inv[:3, :3].T + inv[:3, 3]
-    for i in np.argsort(-cpts[:, 2]):
-        x, y, z = cpts[i]
-        if z < 0.5:
-            continue
-        u = int(round(fx * x / z + cx))
-        v = int(round(fy * y / z + cy))
-        if not (20 <= u < width - 20 and 20 <= v < height - 20):
-            continue
-        img[v - half:v + half + 1, u - half:u + half + 1] = \
-            tex[i].astype(np.uint8)
-        dep[v - half:v + half + 1, u - half:u + half + 1] = z
-    return img, dep
+    """``visual_e2e_scale_bench.render`` (``tools/visual_e2e_scale``):
+    painter's-algorithm stamps in the camera at ``pose`` (``cam``: fx, fy,
+    cx, cy; the bench's by default), at the size of the scene's
+    background; returns (grayscale image, metric depth)."""
+    from cslam_tpu_torch.tools.visual_e2e_scale import render
+    return render(scene, pose, cam)
 
 
 def _pose_xyz_yaw(x, y, z=0.0, yaw=0.0):
-    import numpy as np
-    T = np.eye(4)
-    c, s = np.cos(yaw), np.sin(yaw)
-    T[:3, :3] = [[c, -s, 0], [s, c, 0], [0, 0, 1]]
-    T[:3, 3] = [x, y, z]
-    return T
+    from cslam_tpu_torch.tools.harness import pose_xyz_yaw
+    return pose_xyz_yaw(x, y, z, yaw)
 
 
 def _pose_errors(got, truth):
@@ -3908,175 +3914,41 @@ def _visual_verify(failures, device="cuda"):
     return out
 
 
-def _visual_config(rid, robots, threshold=0.998, sensor="rgbd"):
-    """``visual_e2e_scale_bench``'s per-robot config (RGB-D, CosPlace
-    ResNet18 + GeM, fc 64, crop 224, the port's seeded golden weights), the
-    MAC and PGO tier floors at config defaults."""
-    from cslam_tpu_torch.config import CslamConfig
-    cfg = CslamConfig(robot_id=rid, max_nb_robots=robots)
-    f = cfg.frontend
-    f.sensor_type = sensor
-    f.global_descriptor_technique = "cosplace"
-    f.nn_checkpoint = "random"
-    f.image_crop_size = 224
-    f.similarity_threshold = threshold
-    f.keyframe_generation_ratio_threshold = 1.0
-    f.pnp_min_inliers = 10
-    f.inter_robot_detection_period_sec = 3.0
-    f.detection_publication_period_sec = 1.0
-    f.warmup_verification_tiers = (1, 2, 4, 8, 16)
-    f.max_candidate_pool = 2048
-    f.harvest_ready_gate = True
-    cfg.backend.pose_graph_optimization_start_period_ms = 30000
-    cfg.neighbor_management.enable_neighbor_monitoring = False
-    return cfg.flatten()
-
-
 def _visual_mission(failures, robots=3, steps=40, device="cuda", scenes=40,
                     drain=60, threshold=0.998, sensor="rgbd"):
-    """Part ``visual_mission``: ``benchmarks/visual_e2e_scale_bench.py``'s
-    mission (320 x 240 rendered RGB-D frames of 40 scenes, drifting
-    odometry, every frame a keyframe) through ``RGBDFrontEnd`` ->
-    ``DetectionFrontEnd`` -> ``DecentralizedPGO`` on ``device``, at a
-    reduced depth (``robots`` x ``steps``; the bench runs 5 x 210); with
-    ``sensor="stereo"`` the same with rendered stereo pairs (0.2 m
-    baseline) through the ``StereoFrontEnd`` that ``make_map_manager``
-    builds. Limits: the C++ feature library loaded; at least one verified
-    inter-robot loop; robot 0's optimized ATE <= its odometry ATE + 0.05
-    m; K1 launched (on CUDA)."""
-    import numpy as np
-    import torch
-
-    from cslam_tpu_torch import native
-    from cslam_tpu_torch.ops import nns
-    from cslam_tpu_torch.runtime import (CameraModel, DecentralizedPGO,
-                                         DetectionFrontEnd, MessageBus,
-                                         RobotContext, VirtualClock,
-                                         make_map_manager)
-    from cslam_tpu_torch.types import Odometry
-    from cslam_tpu_torch.utils import profiling
-    cam = CameraModel(**_VIS_CAM, baseline=0.2)
-    bus, clock = MessageBus(), VirtualClock()
-    nodes = []
-    for rid in range(robots):
-        ctx = RobotContext(bus, clock, rid, _visual_config(
-            rid, robots, threshold, sensor))
-        nodes.append((ctx, make_map_manager(ctx, cam, device=device),
-                      DetectionFrontEnd(ctx, device=device),
-                      DecentralizedPGO(ctx, synchronous_optimization=True,
-                                       device=device)))
-    scene_pose = [_pose_xyz_yaw(7.0 * (s % 8), 7.0 * (s // 8))
-                  for s in range(scenes)]
-    world = []
-    for s in range(scenes):
-        pts, tex, bg, half = _vis_scene(1000 + s)
-        pts = pts @ scene_pose[s][:3, :3].T + scene_pose[s][:3, 3]
-        world.append((pts, tex, bg, half))
-    rng = np.random.default_rng(3)
-    gt = {r: [] for r in range(robots)}
-    drifted = {r: [] for r in range(robots)}
-    for r in range(robots):
-        cur = None
-        for i in range(steps):
-            s = (i + 5 * r) % scenes
-            p = scene_pose[s] @ _pose_xyz_yaw(0.25 * r, 0.15 * r, 0.1 * r,
-                                              yaw=0.06 * r)
-            gt[r].append((s, p))
-            if cur is None:
-                cur = p.copy()
-            else:
-                z = np.linalg.inv(gt[r][i - 1][1]) @ p
-                z[:3, 3] += rng.normal(scale=0.05, size=3)
-                cur = cur @ z
-            drifted[r].append(cur.copy())
-    frames = {}
-    for r in range(robots):
-        for i in range(steps):
-            scene, pose = world[gt[r][i][0]], gt[r][i][1]
-            img, dep = _vis_render(scene, pose)
-            if sensor == "stereo":          # (left, right) for the callback
-                dep = _vis_render(scene, pose @ _pose_xyz_yaw(
-                    cam.baseline, 0.0))[0]
-            frames[(r, i)] = (np.stack([img] * 3, axis=-1), dep)
-    native_available = native.available()      # builds the library once
-    if device != "cpu":
-        _mission_mac_warmup(nodes[0][2], robots, steps)
-        _sync()
-        mac_before = _mac_graph_counts()
-    graphs_before = _graph_counts()
-    profiling.reset_spans()
-    nns.launches = 0
-    t0 = time.perf_counter()
-    for i in range(steps):                     # the main path
-        for r in range(robots):
-            fe = nodes[r][1]
-            intake = (fe.stereo_callback if sensor == "stereo"
-                      else fe.rgbd_callback)
-            intake(*frames[(r, i)], Odometry(pose=drifted[r][i]))
-        clock.advance(1.0)
-        for ctx, *_ in nodes:
-            ctx.poll_timers()
-        bus.deliver()
-    for _ in range(drain):
-        clock.advance(1.0)
-        for ctx, *_ in nodes:
-            ctx.poll_timers()
-        bus.deliver()
-    if device != "cpu":
-        _sync()
-    wall = time.perf_counter() - t0
-    launches = nns.launches
-    be0 = nodes[0][3]
-    keyframes = sum(n[1].nb_local_keyframes for n in nodes)
-    loops = sum(len(v) for v in be0.inter_robot_loop_closures.values())
-    est = {k[1]: p for k, p in be0.current_pose_estimates.items()
-           if k[0] == 0}
-
-    def rmse(poses):
-        return float(np.sqrt(np.mean([np.sum(
-            (poses[i][:3, 3] - gt[0][i][1][:3, 3]) ** 2) for i in poses])))
-    spans = {k: v for k, v in profiling.spans().items()
-             if k.split(".")[0] in ("rgbd", "lcd", "nns", "mac")
-             or k == "pgo.optimize"}
+    """Part ``visual_mission``: ``tools/visual_e2e_scale.run_mission``, the
+    twin of ``benchmarks/visual_e2e_scale_bench.py`` (320 x 240 rendered
+    RGB-D frames of 40 scenes, drifting odometry, every frame a keyframe,
+    CosPlace ResNet18 + GeM at crop 224 on the port's seeded golden
+    weights), on ``device`` at a reduced depth (``robots`` x ``steps``;
+    the bench runs 5 x 210) with the MAC and PGO tier floors at their
+    config defaults; with ``sensor="stereo"`` the same with rendered stereo
+    pairs (0.2 m baseline) through the ``StereoFrontEnd`` that
+    ``make_map_manager`` builds. Limits: the C++ feature library loaded,
+    and :func:`_mission_checks`."""
+    from cslam_tpu_torch.tools import visual_e2e_scale
+    out = visual_e2e_scale.run_mission(robots, steps, scenes, device,
+                                       pins=False, drain=drain,
+                                       threshold=threshold, sensor=sensor)
+    out.pop("nodes")
+    out["cuts"] = {"robots": f"{robots} (bench 5)",
+                   "steps": f"{steps} (bench 210)",
+                   "tier floors": "config defaults (bench pins MAC mf/P/E "
+                                  "and PGO np/ne at 2048)"}
+    rgbd = out["spans"].get("rgbd.verify_batch", {})
+    out["verify_batch_s"] = rgbd.get("total_s")
+    out["verify_batch_calls"] = rgbd.get("count")
     tag = f"visual mission ({sensor})"
-    graphs = (_graph_delta(graphs_before, tag, failures)
-              if device != "cpu" else None)
-    if device != "cpu":
-        graphs["mac"] = _mac_mission_graphs(mac_before, tag, failures)
-    out = {"sensor": sensor, "front_end": type(nodes[0][1]).__name__,
-           "robots": robots, "steps": steps, "scenes": scenes,
-           "frame": f"{_VIS_W}x{_VIS_H}", "drain_steps": drain,
-           "similarity_threshold": threshold,
-           "cuts": {"robots": f"{robots} (bench 5)",
-                    "steps": f"{steps} (bench 210)",
-                    "tier floors": "config defaults (bench pins MAC mf/P/E "
-                                   "and PGO np/ne at 2048)"},
-           "native_available": native_available,
-           "wall_s": wall, "keyframes": keyframes,
-           "keyframes_per_s": keyframes / wall,
-           "real_time_factor": (steps + drain) / wall,
-           "inter_robot_loops": loops,
-           "optimizations": be0.optimization_count,
-           "ate_odometry_m": rmse({i: drifted[0][i] for i in range(steps)}),
-           "ate_optimized_m": rmse(est) if est else float("nan"),
-           "k1_launches": launches, "graphs": graphs,
-           "verify_batch_s": spans.get("rgbd.verify_batch", {}).get(
-               "total_s"),
-           "verify_batch_calls": spans.get("rgbd.verify_batch", {}).get(
-               "count"),
-           "spans": spans}
-    print(profiling.report())
-    print(f"  visual_mission {sensor} " + json.dumps(
-        {k: v for k, v in out.items() if k != "spans"}))
+    _print_mission(f"visual_mission {sensor}", out)
     if not out["native_available"]:
         failures.append(f"{tag}: the C++ feature library is not loaded")
-    if loops < 1:
-        failures.append(f"{tag}: no verified inter-robot loop")
-    if not out["ate_optimized_m"] <= out["ate_odometry_m"] + 0.05:
-        failures.append(f"{tag}: optimized ATE {out['ate_optimized_m']} > "
-                        f"odometry ATE {out['ate_odometry_m']} + 0.05")
-    if device != "cpu" and launches < 1:
-        failures.append(f"{tag}: K1 not launched")
+    _mission_checks(tag, out, failures, device)
+    by_set = out["graphs"]["by_set"]
+    replays = sum(by_set[k]["replays"] for k in (
+        "visual_registration.gnc_align_batch",
+        "visual_registration.gnc_pnp_batch"))
+    if device != "cpu" and replays < 1:
+        failures.append(f"{tag}: no verification chunk replayed a graph")
     return out
 
 
@@ -4653,11 +4525,11 @@ def main() -> int:
     parser.add_argument(
         "--phases",
         default="bank_scan,swarm,swarm_floored,large_tiers,distributed,"
-                "frontend,lidar,visual,deploy,mac_calls",
+                "frontend,lidar,visual,deploy,gnc_sweep,scale,mac_calls",
         help="comma-separated subset of bank_scan,swarm,swarm_floored,"
              "large_tiers,distributed,frontend,lidar,visual,deploy,"
-             "mac_calls, or mac_replay, small_svd_ab (not in the default "
-             "run)")
+             "gnc_sweep,scale,mac_calls, or mac_replay, small_svd_ab (not "
+             "in the default run)")
     parser.add_argument(
         "--replay-roots", default=".",
         help="mac_replay, small_svd_ab: comma-separated trees whose "
@@ -4707,6 +4579,8 @@ def main() -> int:
              "lidar": phase_lidar,
              "visual": phase_visual,
              "deploy": phase_deploy,
+             "gnc_sweep": phase_gnc_sweep,
+             "scale": phase_scale,
              "mac_calls": phase_mac_calls,
              "mac_replay": phase_mac_replay,
              "small_svd_ab": phase_small_svd_ab}[phase](results, failures)
@@ -4736,6 +4610,9 @@ def main() -> int:
     deploy_launches = sum(
         deploy.get(part, {}).get("k1_launches", 0)
         for part in ("stereo_replay", "lidar_replay", "swarm_processes"))
+    scale = results.get("scale", {})
+    scale_launches = scale.get("k1_launches", 0)
+    scale_small = scale.get("small_linalg_launches", {})
     dist = results.get("distributed", {})
     mesh = dist.get("mesh_banks", {})
     distributed_launches = (
@@ -4748,8 +4625,10 @@ def main() -> int:
         "replaces": "cslam_tpu/ops/nns_pallas.py:177",
         "launches": results.get("swarm", {}).get(
             "launches", f32.get("launches_main_path", 0)) + lidar_launches
-        + visual_launches + deploy_launches + distributed_launches,
+        + visual_launches + deploy_launches + distributed_launches
+        + scale_launches,
         "launches_lidar": lidar_launches,
+        "launches_scale": scale_launches,
         "launches_visual": visual_launches,
         "launches_deploy": deploy_launches,
         "launches_distributed": distributed_launches,
@@ -4792,7 +4671,7 @@ def main() -> int:
 
     def runs(kind):
         return sum(m.get("small_linalg_launches", {}).get(kind, 0)
-                   for m in missions)
+                   for m in missions) + scale_small.get(kind, 0)
     # null where the checkout has no mirror (nothing was held against it)
     mirror_errs = [e for e in (sml.get(k, {}).get("mirror_max_abs_err")
                                for k in ("rayleigh_ritz", "svqb", "random"))
@@ -4849,7 +4728,8 @@ def main() -> int:
         "replaces": "no TPU kernel: the lax.while_loop of each LOBPCG "
                     "stage (cslam_tpu/ops/fiedler.py:230-245)",
         "launches": sum(m.get("programs", {}).get("mac_woodbury", {}).get(
-            "lobpcg", {}).get("replays", 0) for m in missions),
+            "lobpcg", {}).get("replays", 0) for m in missions)
+        + scale.get("while_launches", 0),
         "max_abs_err": stage.get("max_abs_err"), "ms": stage.get("ms"),
         "plain_ms": stage.get("plain_ms"), "bound_ms": stage.get("bound_ms"),
         "bound_by": stage.get("bound_by"), "library_ms": None,

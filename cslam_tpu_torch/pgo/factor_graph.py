@@ -13,6 +13,7 @@ Counterpart of ``cslam_tpu/pgo/factor_graph.py``; the tier floors are kept.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Dict, List, Tuple
 
@@ -213,3 +214,13 @@ def arrays_from_numpy(fields: Dict[str, np.ndarray],
         out[name] = torch.tensor(np.asarray(value), dtype=dtype,
                                  device=device)
     return PoseGraphArrays(**out)
+
+
+def arrays_to_numpy(arrays: PoseGraphArrays) -> Dict[str, np.ndarray]:
+    """The fields of ``arrays`` as host numpy arrays in the JAX package's
+    dtypes (int32 indices, float32 the rest): the layout of a
+    ``CSLAM_TPU_DUMP_PGO`` file, which either package's replay reads back
+    with :func:`arrays_from_numpy` or its own loader."""
+    return {f.name: _host(getattr(arrays, f.name)).astype(
+        np.int32 if f.name in _INDEX_FIELDS else np.float32)
+        for f in dataclasses.fields(PoseGraphArrays)}

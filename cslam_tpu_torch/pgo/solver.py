@@ -704,11 +704,12 @@ def gnc_optimize(g: PoseGraphArrays, max_outer: int = 100,
 @highest_precision
 def gnc_reoptimize(g: PoseGraphArrays, warm_weights: torch.Tensor,
                    lm_iters: int = 30, cg_iters: int = 150,
-                   barc_sq: float = 16.81) -> GncResult:
+                   barc_sq: float = 16.81, *,
+                   eager: bool = False) -> GncResult:
     """Incremental robust re-solve carrying the previous round's TLS
     weights: gate robust edges by their residual at the warm init (TLS at
     mu = 1), solve weighted LM, refresh the weights with the hard TLS rule,
-    and polish once."""
+    and polish once (``eager``: see :func:`lm_optimize`)."""
     chi2_init = _edge_chi2(g.poses, g)
     init_gate = _tls_weights(chi2_init, 1.0, barc_sq)
     warm_weights = torch.as_tensor(warm_weights, dtype=g.poses.dtype,
@@ -716,12 +717,12 @@ def gnc_reoptimize(g: PoseGraphArrays, warm_weights: torch.Tensor,
     w0 = torch.where(g.robust > 0, torch.minimum(warm_weights, init_gate),
                      torch.ones_like(init_gate))
     res1 = lm_optimize(g, w0, max_iters=lm_iters, cg_iters=cg_iters,
-                       rel_tol=1e-6)
+                       rel_tol=1e-6, eager=eager)
     chi2 = _edge_chi2(res1.poses, g)
     w1 = torch.where(g.robust > 0, (chi2 < barc_sq).to(g.poses.dtype),
                      torch.ones_like(chi2))
     res2 = lm_optimize(_replace_poses(g, res1.poses), w1, max_iters=lm_iters,
-                       cg_iters=cg_iters)
+                       cg_iters=cg_iters, eager=eager)
     chi2 = _edge_chi2(res2.poses, g)
     w2 = torch.where(g.robust > 0, (chi2 < barc_sq).to(g.poses.dtype),
                      torch.ones_like(chi2))

@@ -25,6 +25,7 @@ robot's block stacked on that one device.
 from __future__ import annotations
 
 import enum
+import os
 from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Dict, List, Optional, Set, Tuple
 
@@ -35,7 +36,7 @@ from cslam_tpu_torch import config, resolve_device
 from cslam_tpu_torch.pgo import FactorGraph
 from cslam_tpu_torch.pgo.distributed import (distributed_optimize,
                                              split_factor_graph)
-from cslam_tpu_torch.pgo.factor_graph import _tier
+from cslam_tpu_torch.pgo.factor_graph import _tier, arrays_to_numpy
 from cslam_tpu_torch.pgo.solver import gnc_optimize, gnc_reoptimize
 from cslam_tpu_torch.runtime.rendezvous import SimulatedRendezVous
 from cslam_tpu_torch.utils import profiling
@@ -597,6 +598,23 @@ class DecentralizedPGO:
             cg_iters=self.params.get("backend.cg_max_iterations", 150),
             barc_sq=self.params.get("backend.gnc_barc_sq", 16.81))
 
+    def _maybe_dump_graph(self, arrays) -> None:
+        """Debug hook: CSLAM_TPU_DUMP_PGO=<dir> saves every aggregate graph
+        this node solves as ``pgo_r{robot_id}_{seq:03d}.npz``, one key per
+        PoseGraphArrays field in the JAX package's dtypes (no tensor, no
+        pickle), so that a slow optimization seen in a live run replays
+        alone in either package (``tools/pgo_replay.py``). Unset, it costs
+        one environment lookup and no device read."""
+        dump_dir = os.environ.get("CSLAM_TPU_DUMP_PGO", "")
+        if not dump_dir:
+            return
+        os.makedirs(dump_dir, exist_ok=True)
+        seq = getattr(self, "_dump_seq", 0)
+        self._dump_seq = seq + 1
+        np.savez(os.path.join(
+            dump_dir, f"pgo_r{self.robot_id}_{seq:03d}.npz"),
+            **arrays_to_numpy(arrays))
+
     def _optimize(self, graph: FactorGraph):
         with profiling.span("pgo.optimize"):
             return self._optimize_impl(graph)
@@ -614,6 +632,7 @@ class DecentralizedPGO:
             return graph, poses_d
         arrays = graph.to_arrays(np_floor=self._np_floor,
                                  ne_floor=self._ne_floor, device=self.device)
+        self._maybe_dump_graph(arrays)
         edge_keys = [self._edge_weight_key(e) for e in graph.edges_as_records()]
         full_every = self.params.get(
             "backend.full_gnc_every_n_optimizations", 10)

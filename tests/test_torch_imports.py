@@ -149,6 +149,26 @@ def test_deployment_modules_import_without_jax():
                                   "MessageBus", "TransportHub"]
 
 
+def test_scale_tools_import_without_jax():
+    """The scale harness's tools by name: the PGO replay, the GNC scenario
+    sweep, the lidar and visual scale missions, the verification bench and
+    what they share."""
+    code = (
+        "import sys, importlib\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['cslam_tpu'] = None\n"
+        "for name in ('tools.harness', 'tools.pgo_replay',\n"
+        "             'tools.gnc_scenario_sweep', 'tools.lidar_e2e_scale',\n"
+        "             'tools.visual_e2e_scale', 'tools.verification_bench'):\n"
+        "    importlib.import_module('cslam_tpu_torch.' + name)\n"
+        "from cslam_tpu_torch.tools import gnc_scenario_sweep, pgo_replay\n"
+        "print(len(gnc_scenario_sweep.TIERS), len(pgo_replay.FIELDS))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["4", "12"]
+
+
 def test_source_scan_finds_no_jax_import():
     files = sorted((REPO / "cslam_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
@@ -186,6 +206,10 @@ def _entry_points(params):
 
     from cslam_tpu_torch.tools.dryrun_multichip import run_ranks
     from cslam_tpu_torch.utils.robot_mesh import StackedMesh
+
+    from cslam_tpu_torch.tools import (gnc_scenario_sweep, lidar_e2e_scale,
+                                       pgo_replay, verification_bench,
+                                       visual_e2e_scale)
 
     def ctx(sensor="rgbd"):
         return RobotContext(MessageBus(), VirtualClock(), 0, {
@@ -230,6 +254,13 @@ def _entry_points(params):
         "run_swarm": lambda: run_swarm(robots=1, duration=0.0),
         "StackedMesh": lambda: StackedMesh(2),
         "run_ranks": lambda: run_ranks(2),
+        "pgo_replay.load": lambda: pgo_replay.load("unused.npz"),
+        "gnc_scenario_sweep.sweep": lambda: gnc_scenario_sweep.sweep([]),
+        "lidar_e2e_scale.run_mission": lambda: lidar_e2e_scale.run_mission(
+            1, 1),
+        "visual_e2e_scale.run_mission": lambda:
+            visual_e2e_scale.run_mission(1, 1),
+        "verification_bench.run": lambda: verification_bench.run(),
     }
 
 
@@ -241,7 +272,9 @@ def _entry_points(params):
     "gnc_align_batch", "gnc_pnp_batch", "verify_keyframe_pairs",
     "verify_keyframe_pairs_projective", "warmup_verification",
     "ExperimentLogger", "ReplayDriver", "LidarReplayDriver", "run_swarm",
-    "StackedMesh", "run_ranks"])
+    "StackedMesh", "run_ranks", "pgo_replay.load",
+    "gnc_scenario_sweep.sweep", "lidar_e2e_scale.run_mission",
+    "visual_e2e_scale.run_mission", "verification_bench.run"])
 def test_default_device_without_gpu_raises(monkeypatch, name):
     from helpers import matching_params
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

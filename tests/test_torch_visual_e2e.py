@@ -1,6 +1,7 @@
 """The visual path end to end in both packages, on the CPU: two robots
-revisit rendered scenes (``benchmarks/visual_e2e_scale_bench.py``'s, the
-copies in ``chip_smoke.py``) with drifting odometry, and each package runs
+revisit rendered scenes (``benchmarks/visual_e2e_scale_bench.py``'s, as
+``tools/visual_e2e_scale.py`` draws them; its per-robot config at the
+config's tier floors) with drifting odometry, and each package runs
 ``RGBDFrontEnd`` (or, with ``frontend.sensor_type: stereo``, the
 ``StereoFrontEnd`` that ``make_map_manager`` builds, on rendered stereo
 pairs with a 0.2 m baseline) -> ``DetectionFrontEnd`` (CosPlace ResNet18 +
@@ -21,8 +22,8 @@ import math
 import numpy as np
 import pytest
 
-from chip_smoke import (_pose_xyz_yaw, _vis_render, _vis_scene,
-                        _visual_config)
+from chip_smoke import _pose_xyz_yaw, _vis_render, _vis_scene
+from cslam_tpu_torch.tools.visual_e2e_scale import robot_config
 from torch_threads import one_torch_thread  # noqa: F401
 
 ROBOTS, STEPS, SCENES = 2, 8, 4
@@ -75,7 +76,7 @@ def _run(pkg, sensor, mission, variables=None):
         fx=300.0, fy=300.0, cx=160.0, cy=120.0, baseline=BASELINE)
     robots, model = [], None
     for rid in range(ROBOTS):
-        params = _visual_config(rid, ROBOTS)
+        params = robot_config(rid, ROBOTS, pins=False)
         params.update({"frontend.sensor_type": sensor,
                        "frontend.image_crop_size": 64,
                        "frontend.warmup_verification_tiers": (),
