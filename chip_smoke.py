@@ -77,12 +77,24 @@ Builds the hand-written kernels from the sources in the checkout (one
   64, 819,200 live rows, B = 256, k = 8; one K1 launch per shard, each bit
   for bit with its plain version), timed beside one shard's K1 and
   ``matmul`` + ``topk`` over the stacked banks; ``pgo_8x512``,
-  ``distributed_optimize`` cold and warm (carried weights) on
-  ``benchmarks/graphs/pgo_8x512`` split by robot as the back end splits it,
-  with sweeps, LM iterations, host reads and the outliers' and genuine
-  separators' weights; ``swarm_distributed``, a 4 x 60 swarm with
+  ``distributed_optimize`` cold (its key's first solve, then again) and
+  warm (carried weights) on ``benchmarks/graphs/pgo_8x512`` split by robot
+  as the back end splits it, each graphed (the main path: the whole solve
+  one launch of nested WHILE nodes) and on the plain route (host-driven
+  sweeps), with seconds, sweeps, LM iterations, host reads (graphed: the
+  results' 5 only), plan launches, captures and replays per program (none
+  after the key's first solve), the outliers' and genuine separators'
+  weights, graphed against plain (the same sweeps and separator sides,
+  positions within 1e-2 m), and the device ms per replay of each program
+  of the sweep and of the plain route's batched LM step;
+  ``pgo_8x1024_pcg``, ``benchmarks/distributed_pgo_bench.py``'s world at 8
+  x 1,024 poses (its twin, ``tools/distributed_pgo_bench``), every robot
+  on the PCG tier: graphed (the batched PCG programs) against each robot's
+  ``lm_optimize`` in turn, with the same checks and the centralized GNC
+  beside; ``swarm_distributed``, a 4 x 60 swarm with
   ``backend.pgo_mode: distributed`` (every robot within odometry ATE +
-  0.05 m, at least two improve); ``process_group``,
+  0.05 m, at least two improve, no capture in a solve whose key was
+  captured before); ``process_group``,
   ``tools/dryrun_multichip`` with 4 gloo rank processes on the card held
   against the stacked run of the same problem (poses within 1e-4, the same
   sweeps, K1 launched in every rank, no ``jax`` / ``cslam_tpu`` module),
@@ -825,13 +837,16 @@ def phase_frontend(results, failures):
 
 def _solver_graphs():
     """The solvers' step-program sets (``utils.tier_graphs.StepGraphs``):
-    the dense LM, the PCG-tier LM, the batched LM, MAC's dense and
-    Woodbury Frank-Wolfe loops."""
+    the dense LM, the PCG-tier LM, the batched LM at both tiers, the
+    distributed solve, MAC's dense and Woodbury Frank-Wolfe loops."""
     from cslam_tpu_torch.pgo import distributed, solver
     from cslam_tpu_torch.selection import mac
-    return (solver.DENSE_GRAPHS, solver.PCG_GRAPHS,
-            distributed.BATCHED_GRAPHS, mac.DENSE_FW_GRAPHS,
+    sets = (solver.DENSE_GRAPHS, solver.PCG_GRAPHS,
+            distributed.BATCHED_GRAPHS,
+            getattr(distributed, "BATCHED_PCG_GRAPHS", None),
+            getattr(distributed, "DIST_GRAPHS", None), mac.DENSE_FW_GRAPHS,
             mac.WOODBURY_FW_GRAPHS)
+    return tuple(g for g in sets if g is not None)   # older checkouts
 
 
 def _solver_graph_counts():
@@ -2381,22 +2396,152 @@ def _dist_mesh_banks(failures):
     return rec
 
 
+#: host reads a graphed distributed solve may make: none before its
+#: results, then ``distributed_optimize``'s reads of them (the poses, the
+#: separator weights, sweeps, final delta and LM iterations)
+_DIST_RESULT_READS = 5
+#: graphed against the plain route: positions within the GNC graduation's
+#: limit (the card's atomic sums round differently in each)
+_DIST_POSE_LIMIT_M = _GNC_GRADUATION_LIMIT_M
+
+
+def _dist_graph_counts():
+    from cslam_tpu_torch.pgo import distributed
+    g = distributed.DIST_GRAPHS
+    return g.captures, g.while_launches, len(g._loops)
+
+
+def _dist_solve(tag, problem, mesh, gt, unslot, nb_sep, failures,
+                route=None, warm=False, carried=None, graphed=True,
+                **kwargs):
+    """One ``distributed_optimize`` on the card, counted (``_Counters``):
+    seconds, sweeps, LM iterations, host reads, WHILE-plan launches,
+    captures and replays per program, ATE and the separators' sides of
+    0.5. A graphed solve (the main path) fails the phase on a host read
+    past ``_DIST_RESULT_READS`` and, unless it is its key's first, on a
+    capture."""
+    import numpy as np
+    from cslam_tpu_torch.pgo.distributed import distributed_optimize
+    before = _dist_graph_counts()
+    with _Counters() as count:
+        _sync()
+        t0 = time.perf_counter()
+        est, info = distributed_optimize(
+            problem, mesh, return_info=True, warm=warm,
+            carried_weights=carried, _route=route, **kwargs)
+        seconds = time.perf_counter() - t0
+    after = _dist_graph_counts()
+    w = info.sep_weights[:nb_sep]
+    run = {"seconds": seconds, "route": route or "steps",
+           "sweeps_used": info.sweeps_used,
+           "lm_iters": info.lm_iterations, "host_reads": count.host_reads,
+           "while_launches": after[1] - before[1],
+           "first_of_key": after[2] > before[2],
+           "graph_captures": count.graphs["captures"],
+           "graph_replays": count.graphs["replays"],
+           "by_program": {n: {p: c for p, c in progs.items()
+                              if c["captures"] or c["replays"]}
+                          for n, progs in count.graphs["by_program"].items()
+                          if any(c["captures"] or c["replays"]
+                                 for c in progs.values())},
+           "ate_m": _ate({(unslot[s], kf): p for (s, kf), p in est.items()},
+                         gt),
+           "outliers_rejected": int((w[-2:] < 0.5).sum()),
+           "loops_false_rejected": int((w[:-2] < 0.5).sum())}
+    if graphed:
+        if run["host_reads"] > _DIST_RESULT_READS:
+            failures.append(f"{tag}: {run['host_reads']} host reads, the "
+                            f"graphed solve makes {_DIST_RESULT_READS}")
+        if not run["first_of_key"] and run["graph_captures"]:
+            failures.append(f"{tag}: {run['graph_captures']} captures in a "
+                            "solve whose key was captured before")
+        if run["while_launches"] != 1:
+            failures.append(f"{tag}: {run['while_launches']} plan launches, "
+                            "not 1")
+    print(f"  {tag} " + json.dumps(run))
+    return run, est, info, np.asarray(info.sep_weights[:nb_sep])
+
+
+def _dist_agree(tag, a, b, failures):
+    """Graphed (``a``) against the plain route (``b``): the same sweeps,
+    separators on the same side of 0.5, the same outliers rejected, and
+    positions within ``_DIST_POSE_LIMIT_M``."""
+    import numpy as np
+    (ra, ea, _, wa), (rb, eb, _, wb) = a, b
+    diff = max(float(np.abs(ea[k][:3, 3] - eb[k][:3, 3]).max()) for k in ea)
+    out = {"sweeps": [ra["sweeps_used"], rb["sweeps_used"]],
+           "weight_sides_differ": int(((wa < 0.5) != (wb < 0.5)).sum()),
+           "max_weight_diff": float(np.abs(wa - wb).max()),
+           "max_position_diff_m": diff,
+           "seconds": [ra["seconds"], rb["seconds"]]}
+    if ra["sweeps_used"] != rb["sweeps_used"]:
+        failures.append(f"{tag}: {ra['sweeps_used']} sweeps graphed, "
+                        f"{rb['sweeps_used']} on the plain route")
+    if out["weight_sides_differ"]:
+        failures.append(f"{tag}: {out['weight_sides_differ']} separators on "
+                        "the other side of 0.5 on the plain route")
+    if ra["outliers_rejected"] != rb["outliers_rejected"]:
+        failures.append(f"{tag}: outliers rejected {ra['outliers_rejected']}"
+                        f" graphed, {rb['outliers_rejected']} plain")
+    if not diff <= _DIST_POSE_LIMIT_M:
+        failures.append(f"{tag}: positions {diff} m from the plain route's "
+                        f"(limit {_DIST_POSE_LIMIT_M})")
+    print(f"  {tag} " + json.dumps(out))
+    return out
+
+
+def _replay_ms(graph, n: int = 10) -> float:
+    """CUDA-event ms per replay of a captured program, ``n`` replays back
+    to back (nothing but the graph runs: its device time)."""
+    import torch
+    graph.replay()
+    start, end = torch.cuda.Event(True), torch.cuda.Event(True)
+    start.record()
+    for _ in range(n):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def _dist_program_ms(pcg: bool) -> dict:
+    """Device ms per replay of the distributed programs of the newest key
+    (``pre``, ``post``, the LM's programs) and of the plain route's
+    batched LM step, replayed after the solves (every program computes
+    in full whatever its flags say, so a replay past the stop costs what
+    a live one does)."""
+    from cslam_tpu_torch.pgo import distributed
+    loop = list(distributed.DIST_GRAPHS._loops.values())[-1]
+    names = (("pre", "lm_init", "head", "cg", "tail", "post") if pcg
+             else ("pre", "lm_init", "lm_step", "post"))
+    out = {n: _replay_ms(loop._captured[n]) for n in names}
+    plain = distributed.BATCHED_PCG_GRAPHS if pcg \
+        else distributed.BATCHED_GRAPHS
+    if plain._loops:
+        step = "cg" if pcg else "step"
+        out[f"plain_{step}"] = _replay_ms(
+            list(plain._loops.values())[-1]._captured[step])
+    return out
+
+
 def _dist_pgo(failures, central):
     """``pgo_8x512``: ``benchmarks/graphs/pgo_8x512_init.g2o`` split by robot
     as the back end splits it (``split_factor_graph``), then
-    ``distributed_optimize`` cold and warm (from the cold solution, with
-    its ``sep_weight_by_key``) on a ``StackedMesh`` of 8, with
-    ``benchmarks/distributed_pgo_bench.py``'s keywords. Checked against
-    the JAX package's run of the same solve (``_DIST_REFERENCE``): both
-    planted outliers below 0.5, no more genuine separators below 0.5, ATE
-    against ``_gt.g2o`` within ``_DIST_ATE_MARGIN`` of its ATE.
+    ``distributed_optimize`` on a ``StackedMesh`` of 8 with
+    ``benchmarks/distributed_pgo_bench.py``'s keywords: cold (its key's
+    first solve, which captures, then again), warm (from the cold
+    solution, with its ``sep_weight_by_key``), each graphed (the main
+    path: one plan launch) and on the plain route (host-driven sweeps,
+    the same inputs). Checked against the JAX package's run of the same
+    solve (``_DIST_REFERENCE``): both planted outliers below 0.5, no more
+    genuine separators below 0.5, ATE against ``_gt.g2o`` within
+    ``_DIST_ATE_MARGIN`` of its ATE; graphed against plain
+    (:func:`_dist_agree`); host reads and captures (:func:`_dist_solve`).
     ``central`` is ``large_tiers``' record of the centralized GNC on the
     same graph, printed beside."""
-    import torch
-
     from cslam_tpu_torch.evaluation.g2o import read_g2o
-    from cslam_tpu_torch.pgo.distributed import (distributed_optimize,
-                                                 split_factor_graph)
+    from cslam_tpu_torch.pgo.distributed import split_factor_graph
+    from cslam_tpu_torch.tools.distributed_pgo_bench import set_poses
     from cslam_tpu_torch.utils.robot_mesh import StackedMesh
     base = "benchmarks/graphs/pgo_8x512"
     graph, _ = _g2o_graph(f"{base}_init.g2o")
@@ -2411,26 +2556,21 @@ def _dist_pgo(failures, central):
            "jax_distributed": _DIST_REFERENCE,
            "centralized_gnc": {p: (central or {}).get(p, {}).get("seconds")
                                for p in ("cold", "warm")}}
-    carried = None
-    for phase in ("cold", "warm"):
-        with _Counters() as count:
-            _sync()
-            t0 = time.perf_counter()
-            est, info = distributed_optimize(
-                problem, mesh, sweeps=30, lm_iters=8, cg_iters=60,
-                return_info=True, warm=phase == "warm",
-                carried_weights=carried)
-            seconds = time.perf_counter() - t0
-        w = info.sep_weights[:nb_sep]
-        run = {"seconds": seconds, "sweeps_used": info.sweeps_used,
-               "lm_iters": info.lm_iterations,
-               "host_reads": count.host_reads,
-               "graph_captures": count.graphs["captures"],
-               "graph_replays": count.graphs["replays"],
-               "ate_m": _ate({(unslot[s], kf): p
-                              for (s, kf), p in est.items()}, gt),
-               "outliers_rejected": int((w[-2:] < 0.5).sum()),
-               "loops_false_rejected": int((w[:-2] < 0.5).sum())}
+    kw = {"sweeps": 30, "lm_iters": 8, "cg_iters": 60}
+    args = (problem, mesh, gt, unslot, nb_sep, failures)
+    rec["cold_first"] = _dist_solve("pgo_8x512 cold_first", *args,
+                                    **kw)[0]
+    cold = _dist_solve("pgo_8x512 cold", *args, **kw)
+    cold_plain = _dist_solve("pgo_8x512 cold_plain", *args, route="host",
+                             graphed=False, **kw)
+    set_poses(problem, cold[1])
+    carried = cold[2].sep_weight_by_key
+    warm = _dist_solve("pgo_8x512 warm", *args, warm=True, carried=carried,
+                       **kw)
+    warm_plain = _dist_solve("pgo_8x512 warm_plain", *args, warm=True,
+                             carried=carried, route="host", graphed=False,
+                             **kw)
+    for phase, run in (("cold", cold[0]), ("warm", warm[0])):
         rec[phase] = run
         if run["outliers_rejected"] != 2:
             failures.append(f"pgo_8x512 {phase}: "
@@ -2448,13 +2588,100 @@ def _dist_pgo(failures, central):
                             f"the JAX package's "
                             f"{_DIST_REFERENCE['ate_m']} + "
                             f"{_DIST_ATE_MARGIN}")
-        # the next round starts from this solution with its classification
-        for g in problem.local_graphs:
-            for key, i in g._index.items():
-                g._poses[i] = est[key]
-        carried = info.sep_weight_by_key
+    rec["cold_plain"], rec["warm_plain"] = cold_plain[0], warm_plain[0]
+    rec["cold_vs_plain"] = _dist_agree("pgo_8x512 cold vs plain", cold,
+                                       cold_plain, failures)
+    rec["warm_vs_plain"] = _dist_agree("pgo_8x512 warm vs plain", warm,
+                                       warm_plain, failures)
+    rec["program_ms"] = _dist_program_ms(False)
+    # wall ms per sweep of the graphed cold solve: its init sweeps (2),
+    # its sweeps and the polish
+    rec["ms_per_sweep"] = (1e3 * cold[0]["seconds"]
+                           / (cold[0]["sweeps_used"] + 3))
     print("  pgo_8x512 " + json.dumps(rec))
     return rec
+
+
+def _dist_pcg(failures, robots=8, poses=1024):
+    """``pgo_8x1024_pcg``: ``benchmarks/distributed_pgo_bench.py``'s world at
+    8 robots x 1,024 poses (``--sep-every 16``, seed 0; built by its twin,
+    ``tools/distributed_pgo_bench``), each robot's block on the PCG tier:
+    ``distributed_optimize`` cold with the script's keywords, graphed
+    (batched PCG programs in one plan launch; its key's first solve, then
+    again) and on the plain route with each robot's ``lm_optimize`` in
+    turn, with :func:`_dist_pgo`'s checks (both outliers rejected, graphed
+    against plain), and the centralized GNC of the same graph beside."""
+    import numpy as np
+    from cslam_tpu_torch.pgo import gnc_optimize
+    from cslam_tpu_torch.tools import distributed_pgo_bench as bench
+    from cslam_tpu_torch.utils.robot_mesh import StackedMesh
+    gt, problem, central, n_sep = bench.build(
+        robots, poses, np.random.default_rng(0), 16)
+    mesh = StackedMesh(robots, "cuda")
+    nb_sep = len(problem.separators)
+    unslot = {r: r for r in range(robots)}
+    kw = {"sweeps": 30, **bench.KWARGS}
+    args = (problem, mesh, gt, unslot, nb_sep, failures)
+    rec = {"robots": robots, "poses": robots * poses, "separators": nb_sep,
+           "ate_init_m": bench.ate({k: central.get_pose(k) for k in gt},
+                                   gt)}
+    rec["cold_first"] = _dist_solve("pgo_8x1024_pcg cold_first", *args,
+                                    **kw)[0]
+    graphed = _dist_solve("pgo_8x1024_pcg cold", *args, **kw)
+    in_turn = _dist_solve("pgo_8x1024_pcg in_turn", *args, route="in_turn",
+                          graphed=False, **kw)
+    rec["cold"], rec["in_turn"] = graphed[0], in_turn[0]
+    if graphed[0]["outliers_rejected"] != 2:
+        failures.append(f"pgo_8x1024_pcg: {graphed[0]['outliers_rejected']}"
+                        " of 2 outliers rejected")
+    rec["cold_vs_in_turn"] = _dist_agree("pgo_8x1024_pcg cold vs in_turn",
+                                         graphed, in_turn, failures)
+    rec["program_ms"] = _dist_program_ms(True)
+    arrays = central.to_arrays(device="cuda")
+    with _Counters() as count:
+        _sync()
+        t0 = time.perf_counter()
+        res = gnc_optimize(arrays)
+        seconds = time.perf_counter() - t0
+    est = {tuple(v.key.as_tuple()): v.pose
+           for v in central.values_from_arrays(res.poses)}
+    rec["centralized_gnc"] = {"seconds": seconds,
+                              "outer_iterations": res.outer_iterations,
+                              "ate_m": bench.ate(est, gt),
+                              "graph_captures": count.graphs["captures"]}
+    print("  pgo_8x1024_pcg " + json.dumps(rec))
+    return rec
+
+
+class _DistKeys:
+    """Counts, while entered, each ``distributed._solve_steps`` call's
+    captures and whether its key was new (``failures``: a capture in a
+    solve whose key was captured before)."""
+
+    def __init__(self, tag, failures):
+        self.tag, self.failures, self.solves = tag, failures, []
+
+    def __enter__(self):
+        from cslam_tpu_torch.pgo import distributed
+        self._orig = orig = distributed._solve_steps
+
+        def counted(*args, **kwargs):
+            before = _dist_graph_counts()
+            out = orig(*args, **kwargs)
+            after = _dist_graph_counts()
+            new, caps = after[2] > before[2], after[0] - before[0]
+            self.solves.append((new, caps))
+            if caps and not new:
+                self.failures.append(f"{self.tag}: {caps} captures in a "
+                                     "solve whose key was captured before")
+            return out
+        distributed._solve_steps = counted
+        return self
+
+    def __exit__(self, *exc):
+        from cslam_tpu_torch.pgo import distributed
+        distributed._solve_steps = self._orig
+        return False
 
 
 def _dist_swarm(failures, robots=4, keyframes=60):
@@ -2463,10 +2690,13 @@ def _dist_swarm(failures, robots=4, keyframes=60):
     ``tests/test_runtime.py``'s swarm case) on the card. Checked: the
     distributed solve ran, every robot has estimates, every robot's ATE <=
     odometry + 0.05 m, at least 2 improve, K1 launched."""
+    keys = _DistKeys("swarm_distributed", failures)
+    before = _dist_graph_counts()
     wall, launches, spans, per_robot, count = _swarm_run(
         "swarm_distributed", failures, robots, keyframes,
         {"backend.pgo_mode": "distributed",
-         "backend.distributed_max_sweeps": 12})
+         "backend.distributed_max_sweeps": 12}, during=lambda: keys)
+    after = _dist_graph_counts()
     solves = sum(r["distributed_solves"] for r in per_robot)
     if solves < 1:
         failures.append("swarm_distributed: no distributed solve")
@@ -2482,9 +2712,18 @@ def _dist_swarm(failures, robots=4, keyframes=60):
         improved += r["ate_opt"] < r["ate_odom"]
     if improved < 2:
         failures.append(f"swarm_distributed: {improved} robots improved")
-    return {"wall_s": wall, "k1_launches": launches,
-            "distributed_solves": solves, "improved": improved,
-            "pgo_optimize_s": spans.get("pgo.optimize", {}).get("total_s"),
+    if len(keys.solves) != solves:
+        failures.append(f"swarm_distributed: {len(keys.solves)} solves "
+                        f"through the step programs of {solves}")
+    rec = {"distributed_solves": solves, "improved": improved,
+           "keys": sum(new for new, _ in keys.solves),
+           "captures_first_of_key": sum(c for new, c in keys.solves if new),
+           "captures_after_first_of_key": sum(
+               c for new, c in keys.solves if not new),
+           "while_launches": after[1] - before[1],
+           "pgo_optimize_s": spans.get("pgo.optimize", {}).get("total_s")}
+    print("  swarm_distributed " + json.dumps(rec))
+    return {"wall_s": wall, "k1_launches": launches, **rec,
             **count.summary(), "graphs": count.graphs,
             "robots": per_robot}
 
@@ -2534,14 +2773,18 @@ def phase_distributed(results, failures):
     central = next((r for r in results.get("large_tiers", {}).get("pgo", [])
                     if r.get("graph") == "pgo_8x512"), None)
     out = results["distributed"] = {}
+    before = _dist_graph_counts()
     for name, part in (("mesh_banks", _dist_mesh_banks),
                        ("pgo_8x512", lambda f: _dist_pgo(f, central)),
+                       ("pgo_8x1024_pcg", _dist_pcg),
                        ("swarm_distributed", _dist_swarm),
                        ("process_group", _dist_process_group)):
         t0 = time.perf_counter()
         out[name] = part(failures)
         out[name]["part_s"] = time.perf_counter() - t0
         print(f"  {name}: {out[name]['part_s']:.1f} s")
+    # the distributed solves' plan launches (each runs WHILE nodes)
+    out["while_launches"] = _dist_graph_counts()[1] - before[1]
 
 
 def _two_robot_sim(device, nb_keyframes=30):
@@ -4726,10 +4969,13 @@ def main() -> int:
         "name": "graph_while", "route": "cuda",
         "source": "cslam_tpu_torch/csrc/graph_while.cu",
         "replaces": "no TPU kernel: the lax.while_loop of each LOBPCG "
-                    "stage (cslam_tpu/ops/fiedler.py:230-245)",
+                    "stage (cslam_tpu/ops/fiedler.py:230-245) and the "
+                    "distributed solve's nested sweep, LM and CG loops "
+                    "(cslam_tpu/pgo/distributed.py:644-761)",
         "launches": sum(m.get("programs", {}).get("mac_woodbury", {}).get(
             "lobpcg", {}).get("replays", 0) for m in missions)
-        + scale.get("while_launches", 0),
+        + scale.get("while_launches", 0) + dist.get("while_launches", 0),
+        "launches_distributed": dist.get("while_launches", 0),
         "max_abs_err": stage.get("max_abs_err"), "ms": stage.get("ms"),
         "plain_ms": stage.get("plain_ms"), "bound_ms": stage.get("bound_ms"),
         "bound_by": stage.get("bound_by"), "library_ms": None,

@@ -108,7 +108,7 @@ _ENTRY = {
         "cslam_small_eigh": [_vp, _vp, _vp, _ci, _ci, _vp, _vp],
         "cslam_small_svd": [_vp, _vp, _vp, _vp, _ci, _ci, _vp, _vp]},
     "graph_while": {
-        "cslam_while_create": [_vp, _ci, _vp, _vp],
+        "cslam_plan_create": [_vp, _vp, _ci, _vp],
         "cslam_while_launch": [_vp, _vp]},
 }
 

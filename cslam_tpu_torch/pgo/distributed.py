@@ -23,16 +23,20 @@ gets a weak self-anchor so isolated robots stay well-posed while connected
 ones defer to their separators.
 
 What the JAX package ran as one ``shard_map``-ped jitted program runs here
-as eager PyTorch over the mesh: on a ``StackedMesh`` (every robot in one
-process) the local solves of one sweep are ONE batched Levenberg-Marquardt
-(:func:`_batched_lm`: one linearization over the R blocks and one batched
-Cholesky per iteration, each robot with its own damping, accept/reject and
-stop, as each device's ``while_loop`` had), a step program captured once
-per tier as ``pgo.solver``'s LM steps are; on a ``ProcessGroupMesh`` each
-rank runs ``pgo.solver.lm_optimize`` on its own block. The JAX package's
-outer ``lax`` loop becomes a Python loop with one host read per sweep (the
-stop test); the batched LM reads one status per step, with the next step
-already queued; nothing is read per robot.
+as follows. On a ``StackedMesh`` (every robot in one process) the local
+solves of one sweep are ONE batched Levenberg-Marquardt, each robot with
+its own damping, accept/reject and stop, as each device's ``while_loop``
+had: one linearization over the R blocks and one batched Cholesky per
+iteration up to 512 local poses (:func:`_batched_lm`), a batched
+coarse-corrected PCG with per-robot CG scalars above
+(:func:`_batched_pcg_lm`). The whole robust solve (init sweeps, adaptive
+mu0, sweep loop with its stop test, polish) is one plan of step programs
+(:data:`DIST_GRAPHS`, :func:`_solve_steps`): on CUDA one launch of a
+graph whose sweep, LM and CG loops are nested WHILE nodes, with no host
+read until the results are read. On a ``ProcessGroupMesh`` (host
+collectives) the host drives the sweeps (:func:`_solve_host`, one read
+per sweep) and each rank runs ``pgo.solver.lm_optimize`` on its own
+block; :func:`_solve_host` is also the plain version of the plan.
 """
 from __future__ import annotations
 
@@ -48,7 +52,8 @@ from cslam_tpu_torch.pgo import solver
 from cslam_tpu_torch.pgo.factor_graph import (FactorGraph, PoseGraphArrays,
                                               _tier)
 from cslam_tpu_torch.types import PoseGraphEdge, PoseKey
-from cslam_tpu_torch.utils.robot_mesh import AXIS, RobotMesh  # noqa: F401
+from cslam_tpu_torch.utils.robot_mesh import (AXIS, RobotMesh,  # noqa: F401
+                                              StackedMesh)
 from cslam_tpu_torch.utils.tier_graphs import StepGraphs
 
 # warm-mode mu0: intra-robot robust chi2 above this multiple of barc_sq at
@@ -350,9 +355,10 @@ def _coarse_alignment(all_poses: torch.Tensor, sep: dict,
 
     The normal equations are summed block by block with ``index_put_``
     (the JAX package formed the ``[E, 6, V, 6]`` Jacobian with one-hot
-    matmuls) and solved by ``linalg.solve_ex``; a failed solve (non-finite
-    step) leaves that iteration's correction at identity without a host
-    read. ``6 * R * segments`` unknowns, a dense solve.
+    matmuls) and solved by Cholesky (the JAX package: ``linalg.solve``);
+    a failed solve (non-finite step) leaves that iteration's correction at
+    identity without a host read. ``6 * R * segments`` unknowns, a dense
+    solve.
     """
     R = nb_robots
     M = segments
@@ -437,7 +443,15 @@ def _coarse_alignment(all_poses: torch.Tensor, sep: dict,
                            torch.ones(6 * (V - 1), dtype=dtype, device=dev)
                            * weak])
         Hmat = Hmat + torch.diag(prior)
-        step = torch.linalg.solve_ex(Hmat, b.reshape(6 * V))[0]
+        # symmetric positive definite by its prior: Cholesky and two
+        # triangular solves (cuBLAS), which a CUDA graph WHILE body may
+        # hold; cuSOLVER's LU (``solve_ex``) allocates memory inside the
+        # graph at this size, which a WHILE body may not
+        L, info = torch.linalg.cholesky_ex(Hmat)
+        L = torch.where(info == 0, L, torch.full_like(L, float("nan")))
+        y = torch.linalg.solve_triangular(L, b.reshape(6 * V, 1),
+                                          upper=False)
+        step = torch.linalg.solve_triangular(L.mT, y, upper=True)
         delta = -step.reshape(V, 6)
         # the coarse level is a bias-free accelerator: a numerically failed
         # solve must degrade to "no correction", never poison the state
@@ -486,6 +500,16 @@ def _robot_costs(poses: torch.Tensor, gf: PoseGraphArrays,
                   + torch.sum((rp * rp).reshape(R, -1), 1))
 
 
+def _robot_sum(x: torch.Tensor, R: int) -> torch.Tensor:
+    """Each robot's sum of a flattened per-node array: ``[R]``."""
+    return torch.sum(x.reshape(R, -1), 1)
+
+
+def _node_robot(gf: PoseGraphArrays, R: int) -> torch.Tensor:
+    N = gf.poses.shape[0]
+    return torch.arange(N, device=gf.poses.device) // (N // R)
+
+
 def _batched_init(s, o, robots, **_):
     gf, w = solver._graph_of(o), o["weights"]
     dev = gf.poses.device
@@ -494,32 +518,65 @@ def _batched_init(s, o, robots, **_):
     return {"poses": gf.poses, "current": _robot_costs(gf.poses, gf, w,
                                                        robots),
             "lam": o["tols"][:1].repeat(robots), "active": active,
-            "iters": iters, "status": _batched_status(active, iters)}
+            "iters": iters, "cg_total": torch.zeros_like(iters),
+            "lm_on": torch.any(active),
+            "status": _batched_status(active, iters)}
 
 
-def _batched_status(active, iters):
+def _batched_status(active, iters, cg_total=None, cg_active=None):
     zero = torch.zeros_like(iters[0])
-    return solver._status(~torch.any(active), torch.amax(iters), zero, zero)
+    return solver._status(
+        ~torch.any(active), torch.amax(iters),
+        zero if cg_total is None else torch.amax(cg_total),
+        torch.zeros_like(active[0]) if cg_active is None
+        else torch.any(cg_active))
+
+
+def _batched_update(s, gf, w, delta, cap, rel_tol, R):
+    """Every robot's retract, cost, accept/reject, damping and stop test
+    for the step ``delta`` ``[R * Np, 6]``, each selected by the robot's
+    ``active`` flag (cleared at its stop or its cap): ``solver._lm_update``
+    with a leading robot axis."""
+    node_robot = _node_robot(gf, R)
+    poses, current, lam = s["poses"], s["current"], s["lam"]
+    active, iters = s["active"], s["iters"]
+    delta = delta * gf.node_valid[:, None]
+    candidate = se3.retract(poses, delta)
+    new = _robot_costs(candidate, gf, w, R)
+    accept = new < current
+    take = accept & active
+    poses = torch.where(take[node_robot][:, None, None], candidate, poses)
+    step_small = torch.amax(torch.abs(delta).reshape(R, -1), 1) < 1e-7
+    # converged when the cost stops moving, whether or not the step was
+    # accepted
+    converged = torch.abs(current - new) < rel_tol * (current + 1e-12)
+    current = torch.where(take, new, current)
+    lam = torch.where(active, torch.clamp(
+        torch.where(accept, lam * 0.3, lam * 5.0), 1e-9, 1e7), lam)
+    iters = iters + active.to(torch.int64)
+    active = active & ~(step_small | converged) & (iters < cap)
+    return {"poses": poses, "current": current, "lam": lam,
+            "active": active, "iters": iters, "lm_on": torch.any(active)}
 
 
 def _batched_step(s, o, robots, steps=1, **_):
-    """``steps`` iterations of every robot's LM, each update selected by
-    the robot's ``active`` flag (cleared at its stop or its cap)."""
+    """``steps`` iterations of every robot's LM (dense tier), each update
+    selected by the robot's ``active`` flag (cleared at its stop or its
+    cap)."""
     gf, w = solver._graph_of(o), o["weights"]
     R = robots
     N, Ne = gf.poses.shape[0], gf.edge_i.shape[0]
     Np = N // R
     dtype, dev = gf.poses.dtype, gf.poses.device
     we = w * gf.edge_valid
-    node_robot = torch.arange(N, device=dev) // Np
+    node_robot = _node_robot(gf, R)
     edge_robot = torch.arange(Ne, device=dev) // (Ne // R)
     ei, ej = gf.edge_i % Np, gf.edge_j % Np
     nodes = torch.arange(Np, device=dev)
     eye6 = torch.eye(6, dtype=dtype, device=dev)
-    poses, current, lam = s["poses"], s["current"], s["lam"]
-    active, iters = s["active"], s["iters"]
+    s = dict(s)
     for _ in range(steps):
-        r, Ji, Jj, rp, Jp = solver._linearize(poses, gf)
+        r, Ji, Jj, rp, Jp = solver._linearize(s["poses"], gf)
         grad = solver._assemble_grad(gf, Ji, Jj, Jp, r * we[:, None], rp)
         D = solver._hessian_blocks(gf, Ji, Jj, Jp, w)
         diag_h = torch.clamp(torch.diagonal(D, dim1=1, dim2=2), min=1e-8)
@@ -530,7 +587,7 @@ def _batched_step(s, o, robots, steps=1, **_):
         H.index_put_((edge_robot, ei, ej), JiT_Jj, accumulate=True)
         H.index_put_((edge_robot, ej, ei), JiT_Jj.transpose(1, 2),
                      accumulate=True)
-        damp = (lam[node_robot][:, None, None] * diag_h[:, :, None]
+        damp = (s["lam"][node_robot][:, None, None] * diag_h[:, :, None]
                 * eye6[None])
         H[:, nodes, nodes] += (D + damp).reshape(R, Np, 6, 6)
         Hm = H.permute(0, 1, 3, 2, 4).reshape(R, Np * 6, Np * 6)
@@ -542,27 +599,12 @@ def _batched_step(s, o, robots, steps=1, **_):
         delta = torch.linalg.solve_triangular(L.mT, y, upper=True)
         delta = torch.where((info == 0)[:, None, None], delta,
                             torch.full_like(delta, float("nan")))
-        delta = delta.reshape(R * Np, 6) * gf.node_valid[:, None]
-
-        candidate = se3.retract(poses, delta)
-        new = _robot_costs(candidate, gf, w, R)
-        accept = new < current
-        take = accept & active
-        poses = torch.where(take[node_robot][:, None, None], candidate,
-                            poses)
-        step_small = torch.amax(torch.abs(delta).reshape(R, -1), 1) < 1e-7
-        # converged when the cost stops moving, whether or not the step
-        # was accepted
-        converged = (torch.abs(current - new)
-                     < o["tols"][1] * (current + 1e-12))
-        current = torch.where(take, new, current)
-        lam = torch.where(active, torch.clamp(
-            torch.where(accept, lam * 0.3, lam * 5.0), 1e-9, 1e7), lam)
-        iters = iters + active.to(torch.int64)
-        active = active & ~(step_small | converged) & (iters < o["caps"][0])
-    return {"poses": poses, "current": current, "lam": lam,
-            "active": active, "iters": iters,
-            "status": _batched_status(active, iters)}
+        s.update(_batched_update(s, gf, w, delta.reshape(R * Np, 6),
+                                 o["caps"][0], o["tols"][1], R))
+    out = {k: s[k] for k in ("poses", "current", "lam", "active", "iters",
+                             "lm_on")}
+    out["status"] = _batched_status(s["active"], s["iters"])
+    return out
 
 
 BATCHED_GRAPHS = StepGraphs("batched_lm", {"init": _batched_init,
@@ -571,8 +613,9 @@ BATCHED_GRAPHS = StepGraphs("batched_lm", {"init": _batched_init,
 
 @highest_precision
 def _batched_lm(g: PoseGraphArrays, weights: torch.Tensor,
-                max_iters: int = 50, init_lambda: float = 1e-4,
-                rel_tol: float = 1e-7, *, eager: bool = False):
+                max_iters: int = 50,
+                init_lambda: float = solver._LM_INIT_LAMBDA,
+                rel_tol: float = solver._LM_REL_TOL, *, eager: bool = False):
     """``solver.lm_optimize`` on each of R stacked subgraphs (dense tier,
     ``Np <= solver._DENSE_SOLVE_MAX_NODES``) at once.
 
@@ -602,16 +645,218 @@ def _batched_lm(g: PoseGraphArrays, weights: torch.Tensor,
     return poses.reshape(R, Np, 4, 4), iters
 
 
+# -- the PCG tier, batched ---------------------------------------------------
+#
+# ``solver``'s PCG-tier LM (``_lm_head``, ``_cg_block``, ``_lm_tail``) over
+# the flattened ``[R * Np]`` graph, every scalar per robot: the CG's
+# alpha, beta, residual norms and stop, the LM's damping, accept/reject
+# and stop. Dot products and norms are summed over each robot's own nodes
+# (:func:`_robot_sum`), and the coarse correction holds one ``[6S, 6S]``
+# block per robot (its own segments, its own ridge and Cholesky), so no
+# robot's numbers reach another's. Operands as ``_batched_lm``'s, with
+# ``tols`` = [init_lambda, rel_tol, cg_tol] and ``caps`` = [max_iters,
+# cg_iters].
+
+
+def _batched_coarse_factor(gf, poses, Ji, Jj, Jp, weights, lam_n, diag_h,
+                           R):
+    """``solver._coarse_factor`` of every robot at once: the Galerkin
+    operator of each robot's own ``S`` segments (``solver._COARSE_SEG``
+    nodes each), ``[R, 6S, 6S]``, ridged by its own largest diagonal entry
+    and factored by one batched Cholesky (NaN where it failed). Returns
+    ``(seg, A, chol)``: each node's segment in ``[R * S]``, the
+    prolongation ``Ad(X_n^-1)`` and the factors."""
+    N = gf.poses.shape[0]
+    Np = N // R
+    S = max(1, Np // solver._COARSE_SEG)
+    dtype, dev = Ji.dtype, Ji.device
+    node_robot = _node_robot(gf, R)
+    seg = torch.clamp(torch.arange(Np, device=dev) // solver._COARSE_SEG,
+                      max=S - 1).repeat(R)
+    A = se3.adjoint(se3.inverse(poses)) * gf.node_valid[:, None, None]
+    re, rp = node_robot[gf.edge_i], node_robot[gf.prior_idx]
+    si, sj, sp = seg[gf.edge_i], seg[gf.edge_j], seg[gf.prior_idx]
+    Gi = Ji @ A[gf.edge_i]
+    Gj = Jj @ A[gf.edge_j]
+    w = (weights * gf.edge_valid)[:, None, None]
+    Gp = Jp @ A[gf.prior_idx]
+    Hc = torch.zeros((R, S, S, 6, 6), dtype=dtype, device=dev)
+    for a, Ga in ((si, Gi), (sj, Gj)):
+        for b, Gb in ((si, Gi), (sj, Gj)):
+            Hc.index_put_((re, a, b), Ga.transpose(1, 2) @ Gb * w,
+                          accumulate=True)
+    Hc.index_put_((rp, sp, sp), Gp.transpose(1, 2) @ Gp, accumulate=True)
+    # damping P^T (lam diag H) P lands on the block diagonal
+    T = torch.einsum("nai,na,naj->nij", A, lam_n[:, None] * diag_h, A)
+    Dc = torch.zeros((R * S, 6, 6), dtype=dtype, device=dev)
+    Dc.index_add_(0, node_robot * S + seg, T)
+    segs = torch.arange(S, device=dev)
+    Hc[:, segs, segs] += Dc.reshape(R, S, 6, 6)
+    Hc = Hc.permute(0, 1, 3, 2, 4).reshape(R, S * 6, S * 6)
+    ridge = (1e-7 * torch.amax(torch.diagonal(Hc, dim1=1, dim2=2), 1)
+             + 1e-12)
+    Hc = Hc + ridge[:, None, None] * torch.eye(S * 6, dtype=dtype,
+                                               device=dev)
+    chol, info = torch.linalg.cholesky_ex(Hc)
+    chol = torch.where((info == 0)[:, None, None], chol,
+                       torch.full_like(chol, float("nan")))
+    return node_robot * S + seg, A, chol
+
+
+def _batched_coarse_apply(seg, A, chol, r):
+    """``P H_c^-1 P^T r`` with every robot's own coarse block (two
+    triangular solves: the batched ``cholesky_solve`` is MAGMA on the
+    card)."""
+    R, S6 = chol.shape[:2]
+    c = torch.zeros((R * S6 // 6, 6), dtype=r.dtype, device=r.device)
+    c.index_add_(0, seg, torch.einsum("nba,nb->na", A, r))
+    y = torch.linalg.solve_triangular(chol, c.reshape(R, S6, 1),
+                                      upper=False)
+    y = torch.linalg.solve_triangular(chol.mT, y, upper=True)
+    return torch.einsum("nab,nb->na", A, y.reshape(-1, 6)[seg])
+
+
+def _batched_preconditioner(s, coarse):
+    return solver._preconditioner(s["M_inv"], (lambda r: _batched_coarse_apply(
+        s["seg"], s["A"], s["chol"], r)) if coarse else None)
+
+
+def _batched_cg_more(i, r, b_norm, max_iters, tol, R):
+    """``solver._cg_more`` per robot."""
+    return (i < max_iters) & (torch.sqrt(_robot_sum(r * r, R))
+                              > tol * b_norm)
+
+
+def _batched_head(s, o, robots, coarse=True, **_):
+    """Every robot's LM iteration up to its solve (``solver._lm_head``):
+    linearization, block-Jacobi inverses, the coarse factors and PCG's
+    initial state, none to run for a robot that has stopped."""
+    gf, w = solver._graph_of(o), o["weights"]
+    R = robots
+    node_robot = _node_robot(gf, R)
+    r, Ji, Jj, rp, Jp = solver._linearize(s["poses"], gf)
+    grad = solver._assemble_grad(gf, Ji, Jj, Jp,
+                                 r * (w * gf.edge_valid)[:, None], rp)
+    D = solver._hessian_blocks(gf, Ji, Jj, Jp, w)
+    diag_h = torch.clamp(torch.diagonal(D, dim1=1, dim2=2), min=1e-8)
+    lam_n = s["lam"][node_robot]
+    M_inv = torch.linalg.inv_ex(
+        D + lam_n[:, None, None] * diag_h[:, None]
+        * torch.eye(6, dtype=D.dtype, device=D.device)[None])[0]
+    out = {"Ji": Ji, "Jj": Jj, "Jp": Jp, "diag_h": diag_h, "M_inv": M_inv}
+    if coarse:
+        out["seg"], out["A"], out["chol"] = _batched_coarse_factor(
+            gf, s["poses"], Ji, Jj, Jp, w, lam_n, diag_h, R)
+    b = -grad
+    z = _batched_preconditioner(out, coarse)(b)
+    b_norm = torch.clamp(torch.sqrt(_robot_sum(b * b, R)), min=1e-30)
+    cg_i = torch.zeros(R, dtype=torch.int64, device=b.device)
+    cg_active = _batched_cg_more(cg_i, b, b_norm, o["caps"][1],
+                                 o["tols"][2], R) & s["active"]
+    out.update(x=torch.zeros_like(b), r=b, z=z, p=z,
+               rz=_robot_sum(b * z, R), b_norm=b_norm, cg_i=cg_i,
+               cg_active=cg_active, cg_on=torch.any(cg_active),
+               status=_batched_status(s["active"], s["iters"],
+                                      s["cg_total"], cg_active))
+    return out
+
+
+def _batched_cg(s, o, robots, coarse=True, steps=solver._CG_BLOCK, **_):
+    """``steps`` masked CG iterations of every robot (``solver.
+    _cg_iteration`` with per-robot scalars)."""
+    gf, w = solver._graph_of(o), o["weights"]
+    R = robots
+    node_robot = _node_robot(gf, R)
+    matvec = solver._make_matvec(gf, s["Ji"], s["Jj"], s["Jp"], w,
+                                 s["lam"][node_robot][:, None], s["diag_h"])
+    apply_prec = _batched_preconditioner(s, coarse)
+    max_iters, tol = o["caps"][1], o["tols"][2]
+    x, r, z, p, rz = s["x"], s["r"], s["z"], s["p"], s["rz"]
+    cg_i, on = s["cg_i"], s["cg_active"]
+    for _ in range(steps):
+        on_n = on[node_robot][:, None]
+        Ap = matvec(p)
+        alpha = rz / torch.clamp(_robot_sum(p * Ap, R), min=1e-30)
+        a_n = alpha[node_robot][:, None]
+        r_new = r - a_n * Ap
+        z_new = apply_prec(r_new)
+        rz_new = _robot_sum(r_new * z_new, R)
+        p_new = z_new + (rz_new / torch.clamp(rz, min=1e-30))[
+            node_robot][:, None] * p
+        x = torch.where(on_n, x + a_n * p, x)
+        r = torch.where(on_n, r_new, r)
+        z = torch.where(on_n, z_new, z)
+        p = torch.where(on_n, p_new, p)
+        rz = torch.where(on, rz_new, rz)
+        cg_i = cg_i + on.to(torch.int64)
+        on = on & _batched_cg_more(cg_i, r, s["b_norm"], max_iters, tol, R)
+    return {"x": x, "r": r, "z": z, "p": p, "rz": rz, "cg_i": cg_i,
+            "cg_active": on, "cg_on": torch.any(on),
+            "status": _batched_status(s["active"], s["iters"],
+                                      s["cg_total"], on)}
+
+
+def _batched_tail(s, o, robots, **_):
+    """Every robot's LM iteration after its solve (``solver._lm_tail``)."""
+    gf, w = solver._graph_of(o), o["weights"]
+    out = _batched_update(s, gf, w, s["x"], o["caps"][0], o["tols"][1],
+                          robots)
+    out["cg_total"] = s["cg_total"] + torch.where(
+        s["active"], s["cg_i"], torch.zeros_like(s["cg_i"]))
+    out["status"] = _batched_status(out["active"], out["iters"],
+                                    out["cg_total"])
+    return out
+
+
+BATCHED_PCG_GRAPHS = StepGraphs("batched_pcg", {
+    "init": _batched_init, "head": _batched_head, "cg": _batched_cg,
+    "tail": _batched_tail})
+
+
+@highest_precision
+def _batched_pcg_lm(g: PoseGraphArrays, weights: torch.Tensor,
+                    max_iters: int = 50, cg_iters: int = 150,
+                    init_lambda: float = solver._LM_INIT_LAMBDA,
+                    cg_tol: float = solver._CG_TOL,
+                    rel_tol: float = solver._LM_REL_TOL, *,
+                    eager: bool = False):
+    """``solver.lm_optimize`` on each of R stacked subgraphs of the PCG
+    tier (``Np > solver._DENSE_SOLVE_MAX_NODES``) at once: every robot
+    with its own CG and LM scalars and stops, frozen by a mask once it has
+    stopped, so each robot takes the iterations ``lm_optimize`` takes on it
+    alone. The programs (:data:`BATCHED_PCG_GRAPHS`) are driven as
+    ``lm_optimize``'s PCG tier drives its own (``solver._run_pcg``: one
+    host read per CG block and per LM iteration). Returns (poses ``[R,
+    Np, 4, 4]``, LM iterations ``[R]``, CG iterations ``[R]``)."""
+    R, Np = g.poses.shape[:2]
+    gf = _flatten(g)
+    tols, caps = solver._scalar_operands(
+        g.poses.device, g.poses.dtype, [init_lambda, rel_tol, cg_tol],
+        [max_iters, cg_iters])
+    operands = {n: getattr(gf, n) for n in solver._GRAPH_FIELDS}
+    operands.update(weights=weights.reshape(-1), tols=tols, caps=caps)
+    with BATCHED_PCG_GRAPHS.solve(g.poses.device, operands, eager=eager,
+                                  robots=R, coarse=solver._USE_COARSE,
+                                  steps=solver._CG_BLOCK) as loop:
+        solver._run_pcg(loop)
+        poses, iters, cg = loop.take("poses", "iters", "cg_total")
+    return poses.reshape(R, Np, 4, 4), iters, cg
+
+
 def _local_solve(g: PoseGraphArrays, weights: torch.Tensor, lm_iters: int,
-                 cg_iters: int):
+                 cg_iters: int, in_turn: bool = False):
     """The local LM solves of one sweep, over the owned robots ``[n, ...]``:
-    :func:`_batched_lm` on the dense tier with more than one robot, else
-    ``solver.lm_optimize`` per robot (a rank's one block; the PCG tier
-    above 512 nodes, whose batching is later work). Returns (poses
-    ``[n, Np, 4, 4]``, iterations ``[n]``)."""
+    with more than one robot, one batched LM (:func:`_batched_lm` on the
+    dense tier, :func:`_batched_pcg_lm` above
+    ``solver._DENSE_SOLVE_MAX_NODES`` nodes); with one (a rank's block), or
+    ``in_turn`` (the plain version of the batching), ``solver.lm_optimize``
+    per robot. Returns (poses ``[n, Np, 4, 4]``, iterations ``[n]``)."""
     n, Np = g.poses.shape[:2]
-    if n > 1 and Np <= solver._DENSE_SOLVE_MAX_NODES:
-        return _batched_lm(g, weights, max_iters=lm_iters)
+    if n > 1 and not in_turn:
+        if Np <= solver._DENSE_SOLVE_MAX_NODES:
+            return _batched_lm(g, weights, max_iters=lm_iters)
+        return _batched_pcg_lm(g, weights, max_iters=lm_iters,
+                               cg_iters=cg_iters)[:2]
     poses, iters = [], []
     for j in range(n):
         res = solver.lm_optimize(
@@ -636,22 +881,20 @@ def _local_chi2(poses: torch.Tensor, g: PoseGraphArrays) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _sweep(mesh: RobotMesh, local: PoseGraphArrays, sep: dict,
-           mu: torch.Tensor, coarse_on: bool, *, lm_iters: int,
-           cg_iters: int, barc_sq: float, coarse_iters: int = 3):
-    """One sweep: (owned blocks, separators, mu, coarse_on) -> (new owned
-    poses ``[n, Np, 4, 4]``, replicated separator TLS weights ``[S]``, LM
-    iterations ``[n]``).
-
-    Coarse segment-rigid alignment (replicated tiny GN over the separator
-    graph + segment-crossing intra edges, :func:`_coarse_alignment`), then
-    the local robust LM block solve of every owned robot.
-    """
+def _sweep_inputs(all_poses: torch.Tensor, local: PoseGraphArrays,
+                  sep: dict, mu: torch.Tensor, coarse_on, me: torch.Tensor,
+                  *, nb_robots: int, barc_sq: float, coarse_iters: int = 3):
+    """A sweep up to its local solves, from the gathered blocks ``[R, Np,
+    4, 4]``: the coarse alignment (where ``coarse_on``, a bool or a 0-d
+    bool tensor, selected on the device as the JAX package's
+    ``jnp.where(coarse_on, ...)``), the separator priors of the robots
+    ``me`` at their geodesic midpoints, the canonical separator TLS
+    weights and the local chi2 weights. Returns (the owned robots' local
+    problems ``[n, ...]``, their edge weights ``[n, Ne]``, the replicated
+    separator weights ``[S]``)."""
     segments = int(sep.get("coarse_segments", 1))
     seg_len = int(sep.get("coarse_seg_len", 1 << 30))
     dev = local.poses.device
-    me = torch.tensor(mesh.owned, dtype=torch.int64, device=dev)
-    all_poses = mesh.all_gather(local.poses)          # [R, Np, 4, 4]
 
     # GNC weights at the current estimate (for the coarse stage).
     # NOTE: the TLS surrogate's mid-zone weight goes to ~0 as mu -> 0, NOT
@@ -673,10 +916,13 @@ def _sweep(mesh: RobotMesh, local: PoseGraphArrays, sep: dict,
     w_pre = _sep_weights(chi2_pre)
     # coarse two-level accelerator (identical replicated computation for
     # every holder); bias-free, so it can run every sweep
-    if coarse_iters > 0 and coarse_on:
-        all_poses = _coarse_alignment(
-            all_poses, sep, w_pre, sep.get("cross"), mesh.size, segments,
+    if coarse_iters > 0 and (isinstance(coarse_on, torch.Tensor)
+                             or coarse_on):
+        aligned = _coarse_alignment(
+            all_poses, sep, w_pre, sep.get("cross"), nb_robots, segments,
             seg_len, mu=mu, barc_sq=barc_sq, iters=coarse_iters)
+        all_poses = (torch.where(coarse_on, aligned, all_poses)
+                     if isinstance(coarse_on, torch.Tensor) else aligned)
     my_poses = all_poses[me]
 
     idx, target, info, valid = _separator_priors(me, all_poses, sep)
@@ -700,11 +946,8 @@ def _sweep(mesh: RobotMesh, local: PoseGraphArrays, sep: dict,
     target = mine @ se3.exp(0.5 * se3.log(se3.between(mine, target)))
     info = info * math.sqrt(2.0)
 
-    B = local.prior_idx.shape[1]
     S = idx.shape[1]
-    if S > B - 1:
-        raise ValueError(f"{S} separator slots do not fit the prior tier "
-                         f"{B} (one slot is the self-anchor)")
+    _check_prior_tier(S, local.prior_idx.shape[1])
     g_local = dataclasses.replace(
         local, poses=my_poses,
         prior_idx=torch.cat([local.prior_idx[:, :1], idx,
@@ -719,8 +962,73 @@ def _sweep(mesh: RobotMesh, local: PoseGraphArrays, sep: dict,
     chi2_loc = _local_chi2(my_poses, g_local)
     weights = torch.where(g_local.robust > 0, _tls(chi2_loc, mu, barc_sq),
                           torch.ones_like(chi2_loc))
-    poses, iters = _local_solve(g_local, weights, lm_iters, cg_iters)
+    return g_local, weights, w_canon
+
+
+def _check_prior_tier(S: int, B: int) -> None:
+    if S > B - 1:
+        raise ValueError(f"{S} separator slots do not fit the prior tier "
+                         f"{B} (one slot is the self-anchor)")
+
+
+def _sweep(mesh: RobotMesh, local: PoseGraphArrays, sep: dict,
+           mu: torch.Tensor, coarse_on: bool, *, lm_iters: int,
+           cg_iters: int, barc_sq: float, coarse_iters: int = 3,
+           in_turn: bool = False):
+    """One sweep: (owned blocks, separators, mu, coarse_on) -> (new owned
+    poses ``[n, Np, 4, 4]``, replicated separator TLS weights ``[S]``, LM
+    iterations ``[n]``).
+
+    Coarse segment-rigid alignment (replicated tiny GN over the separator
+    graph + segment-crossing intra edges, :func:`_coarse_alignment`), then
+    the local robust LM block solve of every owned robot
+    (:func:`_local_solve`).
+    """
+    me = torch.tensor(mesh.owned, dtype=torch.int64,
+                      device=local.poses.device)
+    g_local, weights, w_canon = _sweep_inputs(
+        mesh.all_gather(local.poses), local, sep, mu, coarse_on, me,
+        nb_robots=mesh.size, barc_sq=barc_sq, coarse_iters=coarse_iters)
+    poses, iters = _local_solve(g_local, weights, lm_iters, cg_iters,
+                                in_turn)
     return poses, w_canon, iters
+
+
+def _adaptive_mu0(all_poses: torch.Tensor, poses: torch.Tensor,
+                  local: PoseGraphArrays, sep: dict, barc_sq: float,
+                  mu0_chi2_cap: float, reduce_max=lambda x: x):
+    """mu0 from the initialized estimate, GTSAM-style, over EVERY robust
+    residual (separators AND robust intra-robot loop closures, since the
+    same mu drives TLS on both): the gathered blocks ``all_poses``, the
+    owned ones ``poses`` and their problems ``local``; ``reduce_max`` is
+    the mesh's maximum over every process."""
+    _, chi2_sep = _sep_residuals(all_poses, sep)
+    sep_keep = sep["valid"] > 0
+    if "w_carry" in sep:
+        # warm steady state: separators the previous round already
+        # classified as outliers must not drive mu0 down (their huge,
+        # expected chi2 would force a full re-graduation every round);
+        # a falsely-carried classification leaves genuine separators
+        # with large chi2, so graduation re-runs and self-corrects
+        known_out = (sep["carry_known"] > 0) & (sep["w_carry"] < 0.5)
+        sep_keep = sep_keep & ~known_out
+    sep_max = torch.max(torch.where(sep_keep, chi2_sep,
+                                    torch.zeros_like(chi2_sep)))
+    chi2_loc = _local_chi2(poses, local)                 # [n, Ne]
+    loc_keep = local.robust * local.edge_valid > 0
+    if "w_carry" in sep:
+        # intra-robot loop closures GROSS at the warm poses were
+        # hard-TLS-cut by the previous round; moderate chi2 stays in
+        # the max so a NEW genuine edge still graduates
+        loc_keep = loc_keep & (chi2_loc <= _WARM_INTRA_GROSS * barc_sq)
+    loc_max = reduce_max(torch.max(torch.where(
+        loc_keep, chi2_loc, torch.zeros_like(chi2_loc))))
+    max_chi2 = torch.clamp(torch.maximum(sep_max, loc_max),
+                           max=mu0_chi2_cap * barc_sq)
+    mu = torch.where(max_chi2 > barc_sq,
+                     barc_sq / (2.0 * max_chi2 - barc_sq),
+                     torch.full_like(max_chi2, 1e6))
+    return torch.clamp(mu, min=1e-6).to(torch.float32)
 
 
 def _f32(x, device) -> torch.Tensor:
@@ -773,9 +1081,11 @@ def make_distributed_solve(mesh: RobotMesh, max_sweeps: int = 30,
       over every robot).
 
     A final full-budget sweep polishes the blocks at the converged weights
-    (the analogue of gnc_optimize's final LM polish). Returns
-    ``(poses [R, Np, 4, 4] of every robot, sweeps_used, final_delta,
-    sep_weights)``.
+    (the analogue of gnc_optimize's final LM polish). On a
+    :class:`~cslam_tpu_torch.utils.robot_mesh.StackedMesh` the whole solve
+    is :data:`DIST_GRAPHS`' plan (one launch on CUDA), elsewhere the host
+    drives the sweeps (:func:`_solve_host`). Returns ``(poses [R, Np, 4,
+    4] of every robot, sweeps_used, final_delta, sep_weights)``.
     """
     def solve(local: PoseGraphArrays, sep: dict):
         return _solve(mesh, local, sep, max_sweeps=max_sweeps,
@@ -788,13 +1098,42 @@ def make_distributed_solve(mesh: RobotMesh, max_sweeps: int = 30,
     return solve
 
 
-@highest_precision
+#: ``distributed_optimize``'s routes: the main path, and the host-driven
+#: plain versions (batched local solves; each robot's ``lm_optimize`` in
+#: turn)
+_ROUTES = ("steps", "host", "in_turn")
+
+
 def _solve(mesh: RobotMesh, local: PoseGraphArrays, sep: dict, *,
-           max_sweeps, lm_iters, cg_iters, barc_sq, mu0, mu_step, tol,
-           init_sweeps, final_lm_iters=25, mu0_chi2_cap=500.0,
-           coarse_sweeps=1 << 30):
-    """:func:`make_distributed_solve`'s body; also returns the LM
-    iterations of every owned robot summed over the sweeps (a tensor).
+           route: Optional[str] = None, eager: bool = False, **kwargs):
+    """The solve by ``route`` (default: :func:`_solve_steps` on a
+    ``StackedMesh`` whose separators hold the coarse metadata, else
+    :func:`_solve_host`). Returns (poses of every robot, sweeps, final
+    delta, separator weights, LM iterations of every owned robot summed
+    over the sweeps)."""
+    if route is None:
+        route = ("steps" if isinstance(mesh, StackedMesh) and "cross" in sep
+                 else "host")
+    if route not in _ROUTES:
+        raise ValueError(f"route {route!r} is none of {_ROUTES}")
+    if route == "steps":
+        if not isinstance(mesh, StackedMesh):
+            raise ValueError("the step programs run on a StackedMesh")
+        return _solve_steps(local, sep, eager=eager, **kwargs)
+    return _solve_host(mesh, local, sep, in_turn=route == "in_turn",
+                       **kwargs)
+
+
+@highest_precision
+def _solve_host(mesh: RobotMesh, local: PoseGraphArrays, sep: dict, *,
+                max_sweeps, lm_iters, cg_iters, barc_sq, mu0, mu_step, tol,
+                init_sweeps, final_lm_iters=25, mu0_chi2_cap=500.0,
+                coarse_sweeps=1 << 30, in_turn=False):
+    """:func:`make_distributed_solve`'s body driven from the host (the
+    plain version of :func:`_solve_steps`, and the route of a
+    ``ProcessGroupMesh``, whose gathers are host collectives): one host
+    read per sweep (the stop test) and the local solves' own
+    (:func:`_local_solve`, ``in_turn`` as there).
 
     Under ``highest_precision``: every product here (coarse normal
     equations, canonical separator chi2, geodesic midpoints, adaptive mu0)
@@ -805,7 +1144,7 @@ def _solve(mesh: RobotMesh, local: PoseGraphArrays, sep: dict, *,
     def sweep(poses, sep_, mu, coarse_on, iters):
         return _sweep(mesh, dataclasses.replace(local, poses=poses), sep_,
                       mu, coarse_on, lm_iters=iters, cg_iters=cg_iters,
-                      barc_sq=barc_sq)
+                      barc_sq=barc_sq, in_turn=in_turn)
 
     nb_sep = sep["valid"].shape[0]
 
@@ -831,37 +1170,9 @@ def _solve(mesh: RobotMesh, local: PoseGraphArrays, sep: dict, *,
                               lm_iters)
         lm_total += it
 
-    # adaptive mu0 from the initialized estimate, GTSAM-style, over EVERY
-    # robust residual (separators AND robust intra-robot loop closures,
-    # since the same mu drives TLS on both)
     if mu0 is None:
-        _, chi2_sep = _sep_residuals(mesh.all_gather(poses), sep)
-        sep_keep = sep["valid"] > 0
-        if "w_carry" in sep:
-            # warm steady state: separators the previous round already
-            # classified as outliers must not drive mu0 down (their huge,
-            # expected chi2 would force a full re-graduation every round);
-            # a falsely-carried classification leaves genuine separators
-            # with large chi2, so graduation re-runs and self-corrects
-            known_out = (sep["carry_known"] > 0) & (sep["w_carry"] < 0.5)
-            sep_keep = sep_keep & ~known_out
-        sep_max = torch.max(torch.where(sep_keep, chi2_sep,
-                                        torch.zeros_like(chi2_sep)))
-        chi2_loc = _local_chi2(poses, local)                 # [n, Ne]
-        loc_keep = local.robust * local.edge_valid > 0
-        if "w_carry" in sep:
-            # intra-robot loop closures GROSS at the warm poses were
-            # hard-TLS-cut by the previous round; moderate chi2 stays in
-            # the max so a NEW genuine edge still graduates
-            loc_keep = loc_keep & (chi2_loc <= _WARM_INTRA_GROSS * barc_sq)
-        loc_max = mesh.all_reduce_max(torch.max(torch.where(
-            loc_keep, chi2_loc, torch.zeros_like(chi2_loc))))
-        max_chi2 = torch.clamp(torch.maximum(sep_max, loc_max),
-                               max=mu0_chi2_cap * barc_sq)
-        mu = torch.where(max_chi2 > barc_sq,
-                         barc_sq / (2.0 * max_chi2 - barc_sq),
-                         _f32(1e6, dev))
-        mu = torch.clamp(mu, min=1e-6).to(torch.float32)
+        mu = _adaptive_mu0(mesh.all_gather(poses), poses, local, sep,
+                           barc_sq, mu0_chi2_cap, mesh.all_reduce_max)
     else:
         mu = _f32(mu0, dev)
 
@@ -888,6 +1199,215 @@ def _solve(mesh: RobotMesh, local: PoseGraphArrays, sep: dict, *,
     poses, w, it = sweep(poses, sep_run, mu, False, final_lm_iters)
     lm_total += it
     return mesh.all_gather(poses), sweeps, delta, w, lm_total
+
+
+# -- the whole solve as step programs -------------------------------------
+#
+# The JAX package jits the whole robust solve (``cslam_tpu/pgo/
+# distributed.py:644-761``): the init sweeps as a ``fori_loop``, the
+# adaptive mu0, the Gauss-Seidel sweeps as a ``while_loop`` with its stop
+# test on the device, the polish sweep, each sweep's local LM solves
+# ``while_loop``s of their own. Here that program is :data:`DIST_GRAPHS`
+# over one loop state, run as the plan :func:`_solve_plan`: the sweep loop
+# (``sweeping``) over ``pre``, the batched local LM (``lm_init``, then
+# ``lm_step`` while ``lm_on``; on the PCG tier ``head``, the CG blocks
+# while ``cg_on``, ``tail``) and ``post``, three times: the init sweeps
+# (``init`` sets phase 0: mu = 1, the carried classification on, coarse
+# on), the run (``mu0`` sets phase 1) and the polish (``polish`` sets
+# phase 2: one sweep, coarse off, the polish's LM cap). On CUDA the plan
+# is one launch, its loops WHILE nodes (``utils.tier_graphs.StepGraphs.
+# run_plan``), with no host read until the results are read; eagerly
+# (the CPU, ``eager``) the host reads each flag, and every op is
+# :func:`_solve_host`'s, in its order, so the two agree bit for bit.
+# The state's ``blocks`` are the sweeps' poses ``[R, Np, 4, 4]``; the local
+# LM's programs keep their own names. Operands: the stacked local problems
+# under ``PoseGraphArrays``' names,
+# the separators as ``sep_*`` and their crossing edges as ``cross_*``,
+# ``tols`` = [init_lambda, rel_tol, cg_tol, tol, mu0, mu0 given] and
+# ``caps`` = [init_sweeps, max_sweeps, coarse_sweeps, lm_iters,
+# final_lm_iters, cg_iters]. Static: the robots, the coarse partition
+# (``segments``, ``seg_len``, the JAX package's cache key), ``barc_sq``,
+# ``mu_step``, ``mu0_chi2_cap`` (closure constants there), whether the
+# separators carry a classification, and the CG block.
+
+_SEP_FIELDS = ("r0", "k0", "r1", "k1", "meas", "sqrt_info", "valid")
+_CARRY_FIELDS = ("w_carry", "carry_known")
+_CROSS_FIELDS = ("r", "ki", "kj", "meas", "sqrt_info", "valid", "robust")
+# the local problem's entries a sweep's ``pre`` rewrites
+_LOCAL_STATE = ("poses", "prior_idx", "prior_pose", "prior_sqrt_info",
+                "prior_valid")
+#: CG iterations per program inside a sweep's WHILE node (each program
+#: run is a device-side iteration, so a short block wastes few masked
+#: iterations past the stop)
+_SWEEP_CG_BLOCK = 4
+
+
+def _local_of(o) -> PoseGraphArrays:
+    return solver._graph_of(o)
+
+
+def _sep_of(s, o, carry, segments, seg_len) -> dict:
+    sep = {k: o[f"sep_{k}"] for k in _SEP_FIELDS}
+    if carry:
+        sep.update({k: o[f"sep_{k}"] for k in _CARRY_FIELDS},
+                   carry_on=s["carry_on"])
+    sep.update(coarse_segments=segments, coarse_seg_len=seg_len,
+               cross={k: o[f"cross_{k}"] for k in _CROSS_FIELDS})
+    return sep
+
+
+def _full(like, value, dtype):
+    return torch.full((), value, dtype=dtype, device=like.device)
+
+
+def _dist_init(s, o, robots, **_):
+    """Phase 0, the init sweeps: mu = 1 with the carried classification
+    on, ``caps[0]`` sweeps from the problem's poses."""
+    x = o["poses"]
+    zero = _full(x, 0, torch.int64)
+    return {"blocks": x, "mu": _full(x, 1.0, torch.float32),
+            "carry_on": _full(x, 1.0, torch.float32), "phase": zero,
+            "sweeps": zero, "sweeping": o["caps"][0] > 0,
+            "lm_cap": o["caps"][3],
+            "lm_total": torch.zeros(robots, dtype=torch.int64,
+                                    device=x.device),
+            "w": torch.zeros_like(o["sep_valid"]),
+            "delta": _full(x, float("inf"), torch.float32),
+            "done": _full(x, False, torch.bool)}
+
+
+def _dist_pre(s, o, robots, barc_sq, carry, segments, seg_len, **_):
+    """A sweep up to its local solves (:func:`_sweep_inputs`), coarse on in
+    phase 0, in phase 1 for the first ``caps[2]`` sweeps, off in phase
+    2."""
+    phase = s["phase"]
+    coarse_on = (phase == 0) | ((phase == 1) & (s["sweeps"] < o["caps"][2]))
+    me = torch.arange(robots, device=s["blocks"].device)
+    g, weights, w_canon = _sweep_inputs(
+        s["blocks"], _local_of(o), _sep_of(s, o, carry, segments, seg_len),
+        s["mu"], coarse_on, me, nb_robots=robots, barc_sq=barc_sq)
+    out = {f"local_{n}": getattr(g, n) for n in _LOCAL_STATE}
+    out.update(lm_weights=weights.reshape(-1), w_new=w_canon)
+    return out
+
+
+def _in_sweep(fn, block=False):
+    """A program of the batched local LM run inside a sweep: its graph (the
+    flattened local problems of ``pre``), weights and caps come from the
+    sweep's state, its tolerances from the solve's (``tols`` begins as
+    the local LM's)."""
+    def program(s, o, robots, cg_steps, **_):
+        g = dataclasses.replace(_local_of(o), **{
+            n: s[f"local_{n}"] for n in _LOCAL_STATE})
+        view = {n: getattr(_flatten(g), n) for n in solver._GRAPH_FIELDS}
+        view.update(weights=s["lm_weights"], tols=o["tols"],
+                    caps=torch.stack([s["lm_cap"], o["caps"][5]]))
+        return fn(s, view, robots=robots, coarse=solver._USE_COARSE,
+                  steps=cg_steps if block else 1)
+    return program
+
+
+def _dist_post(s, o, robots, mu_step, **_):
+    """A sweep after its local solves: the new blocks and the LM count;
+    in phase 1 the stop test (weights binary or stable, and delta <
+    ``tols[3]``), mu's step and the sweep count; the sweep flag."""
+    phase = s["phase"]
+    init, run = phase == 0, phase == 1
+    new = s["poses"].reshape(s["blocks"].shape)
+    w = s["w_new"]
+    delta = torch.max(torch.abs(new - s["blocks"]))
+    binary = torch.all((w < 1e-3) | (w > 1.0 - 1e-3))
+    stable = torch.max(torch.abs(w - s["w"])) < 1e-3
+    done = (binary | stable) & (delta < o["tols"][3])
+    sweeps = torch.where(phase == 2, s["sweeps"], s["sweeps"] + 1)
+    return {"blocks": new, "lm_total": s["lm_total"] + s["iters"],
+            "w": torch.where(init, s["w"], w),
+            "delta": torch.where(run, delta, s["delta"]),
+            "done": torch.where(run, done, s["done"]),
+            "mu": torch.where(run, torch.clamp(s["mu"] * mu_step, max=1e6),
+                              s["mu"]),
+            "sweeps": sweeps,
+            "sweeping": torch.where(init, sweeps < o["caps"][0],
+                                    run & ~done & (sweeps < o["caps"][1]))}
+
+
+def _dist_mu0(s, o, robots, barc_sq, mu0_chi2_cap, carry, segments,
+              seg_len, **_):
+    """Phase 1, the sweeps: mu0 given (``tols[5]``) or adaptive
+    (:func:`_adaptive_mu0`), the carried classification off, up to
+    ``caps[1]`` sweeps."""
+    x = s["blocks"]
+    sep = _sep_of(s, o, carry, segments, seg_len)
+    mu = torch.where(o["tols"][5] > 0, o["tols"][4], _adaptive_mu0(
+        x, x, _local_of(o), sep, barc_sq, mu0_chi2_cap))
+    return {"mu": mu, "phase": _full(x, 1, torch.int64),
+            "carry_on": _full(x, 0.0, torch.float32),
+            "sweeps": _full(x, 0, torch.int64),
+            "w": torch.zeros_like(s["w"]),
+            "delta": _full(x, float("inf"), torch.float32),
+            "done": _full(x, False, torch.bool),
+            "sweeping": o["caps"][1] > 0, "lm_cap": o["caps"][3]}
+
+
+def _dist_polish(s, o, **_):
+    """Phase 2, the polish: one sweep at the converged mu, coarse off, LM
+    cap ``caps[4]``."""
+    x = s["blocks"]
+    return {"phase": _full(x, 2, torch.int64), "lm_cap": o["caps"][4],
+            "sweeping": _full(x, True, torch.bool)}
+
+
+DIST_GRAPHS = StepGraphs("dist_sweep", {
+    "init": _dist_init, "pre": _dist_pre,
+    "lm_init": _in_sweep(_batched_init), "lm_step": _in_sweep(_batched_step),
+    "head": _in_sweep(_batched_head), "cg": _in_sweep(_batched_cg, True),
+    "tail": _in_sweep(_batched_tail), "post": _dist_post,
+    "mu0": _dist_mu0, "polish": _dist_polish})
+
+
+def _solve_plan(pcg: bool) -> tuple:
+    """The whole solve as a plan of :data:`DIST_GRAPHS` (see
+    ``StepGraphs.run_plan``)."""
+    lm = (("head", ("cg_on", ("cg",)), "tail") if pcg else ("lm_step",))
+    sweep = ("sweeping", ("pre", "lm_init", ("lm_on", lm), "post"))
+    return ("init", sweep, "mu0", sweep, "polish", sweep)
+
+
+@highest_precision
+def _solve_steps(local: PoseGraphArrays, sep: dict, *, max_sweeps,
+                 lm_iters, cg_iters, barc_sq, mu0, mu_step, tol,
+                 init_sweeps, final_lm_iters=25, mu0_chi2_cap=500.0,
+                 coarse_sweeps=1 << 30, eager=False):
+    """:func:`_solve_host` on a ``StackedMesh`` as :data:`DIST_GRAPHS`'
+    plan: captured once per key and launched once per solve on CUDA
+    (``eager``: the same programs launched one by one, as on the CPU).
+    The local solves are batched at both tiers. Returns the results as
+    device tensors."""
+    R, Np = local.poses.shape[:2]
+    dev, dtype = local.poses.device, local.poses.dtype
+    nb_sep = sep["valid"].shape[0]
+    _check_prior_tier(nb_sep, local.prior_idx.shape[1])
+    carry = "w_carry" in sep
+    tols, caps = solver._scalar_operands(
+        dev, dtype, [solver._LM_INIT_LAMBDA, solver._LM_REL_TOL,
+                     solver._CG_TOL, tol, 0.0 if mu0 is None else mu0,
+                     float(mu0 is not None)],
+        [init_sweeps, max_sweeps, coarse_sweeps, lm_iters, final_lm_iters,
+         cg_iters])
+    operands = {n: getattr(local, n) for n in solver._GRAPH_FIELDS}
+    operands.update({f"sep_{k}": sep[k] for k in _SEP_FIELDS
+                     + (_CARRY_FIELDS if carry else ())})
+    operands.update({f"cross_{k}": sep["cross"][k] for k in _CROSS_FIELDS})
+    operands.update(tols=tols, caps=caps)
+    with DIST_GRAPHS.solve(
+            dev, operands, eager=eager, robots=R,
+            segments=int(sep.get("coarse_segments", 1)),
+            seg_len=int(sep.get("coarse_seg_len", 1 << 30)),
+            barc_sq=float(barc_sq), mu_step=float(mu_step),
+            mu0_chi2_cap=float(mu0_chi2_cap), carry=carry,
+            cg_steps=_SWEEP_CG_BLOCK) as loop:
+        loop.run_plan(_solve_plan(Np > solver._DENSE_SOLVE_MAX_NODES))
+        return loop.take("blocks", "sweeps", "delta", "w", "lm_total")
 
 
 class DistributedInfo:
@@ -917,7 +1437,8 @@ def distributed_optimize(problem: ShardedPoseGraph, mesh: RobotMesh,
                          mu_step: float = 1.6, barc_sq: float = 16.81,
                          tol: float = 1e-3, return_info: bool = False,
                          warm: bool = False,
-                         carried_weights: Optional[Dict] = None):
+                         carried_weights: Optional[Dict] = None, *,
+                         _route: Optional[str] = None, _eager: bool = False):
     """Run robust block Gauss-Seidel PGO over the mesh.
 
     The whole robust solve (GNC mu schedule, separator reweighting,
@@ -940,9 +1461,12 @@ def distributed_optimize(problem: ShardedPoseGraph, mesh: RobotMesh,
     self-corrects rather than persisting.
 
     Every process of a process-group mesh calls this with the same
-    problem; each returns every robot's values. Returns the optimized
-    values dict, or ``(values, DistributedInfo)`` when ``return_info`` is
-    set.
+    problem; each returns every robot's values. ``_route`` (one of
+    :data:`_ROUTES`) picks a plain version instead of the main path (the
+    step programs' plan on a ``StackedMesh``, the host-driven sweeps on a
+    process group); ``_eager`` launches the plan's programs one by one.
+    Both are for tests and the card's checks, not for callers. Returns the optimized values dict, or
+    ``(values, DistributedInfo)`` when ``return_info`` is set.
     """
     local, sep = problem.to_device_arrays(mesh)
     sep_keys = problem.separator_keys()
@@ -965,9 +1489,9 @@ def distributed_optimize(problem: ShardedPoseGraph, mesh: RobotMesh,
     else:
         init_sweeps = 2
     poses, sweeps_used, delta, w, lm_total = _solve(
-        mesh, local, sep, max_sweeps=sweeps, lm_iters=lm_iters,
-        cg_iters=cg_iters, barc_sq=barc_sq, mu0=mu0, mu_step=mu_step,
-        tol=tol, init_sweeps=init_sweeps)
+        mesh, local, sep, route=_route, eager=_eager, max_sweeps=sweeps,
+        lm_iters=lm_iters, cg_iters=cg_iters, barc_sq=barc_sq, mu0=mu0,
+        mu_step=mu_step, tol=tol, init_sweeps=init_sweeps)
     values = problem.values_from_arrays(poses)
     if return_info:
         w_np = w.cpu().numpy()

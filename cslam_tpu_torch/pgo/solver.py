@@ -44,6 +44,11 @@ _COARSE_SEG = 32    # nodes per segment of the two-level PCG coarse space
 _USE_COARSE = True  # the coarse correction in the PCG tier (A/B switch)
 _CG_BLOCK = 16      # CG iterations per replayed block (chosen: PERF.md §6)
 _LM_STEPS = 1       # LM iterations per replayed dense step
+# LM defaults, shared by every local solve (``lm_optimize`` and the
+# distributed mode's batched tiers must stop alike)
+_LM_INIT_LAMBDA = 1e-4
+_LM_REL_TOL = 1e-7
+_CG_TOL = 1e-6
 
 
 # ---------------------------------------------------------------------------
@@ -540,8 +545,9 @@ class LMResult(NamedTuple):
 @highest_precision
 def lm_optimize(g: PoseGraphArrays, weights: torch.Tensor,
                 max_iters: int = 50, cg_iters: int = 150,
-                init_lambda: float = 1e-4, cg_tol: float = 1e-6,
-                rel_tol: float = 1e-7, *, eager: bool = False) -> LMResult:
+                init_lambda: float = _LM_INIT_LAMBDA,
+                cg_tol: float = _CG_TOL, rel_tol: float = _LM_REL_TOL, *,
+                eager: bool = False) -> LMResult:
     """Levenberg-Marquardt: dense Cholesky steps up to
     ``_DENSE_SOLVE_MAX_NODES`` padded nodes, coarse-corrected PCG steps
     (at most ``cg_iters`` iterations to ``cg_tol``) above.

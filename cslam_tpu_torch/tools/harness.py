@@ -64,7 +64,8 @@ def graph_sets():
     from cslam_tpu_torch.selection import mac
     return (reg.VERIFY_GRAPHS, vreg.ALIGN_GRAPHS, vreg.PNP_GRAPHS,
             solver.DENSE_GRAPHS, solver.PCG_GRAPHS,
-            distributed.BATCHED_GRAPHS, mac.DENSE_FW_GRAPHS,
+            distributed.BATCHED_GRAPHS, distributed.BATCHED_PCG_GRAPHS,
+            distributed.DIST_GRAPHS, mac.DENSE_FW_GRAPHS,
             mac.WOODBURY_FW_GRAPHS)
 
 

@@ -56,6 +56,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import threading
+import weakref
 from typing import Callable, Dict, Tuple
 
 import numpy as np
@@ -242,7 +243,16 @@ class StepGraphs:
     capture becomes the body of a conditional WHILE node
     (``csrc/graph_while.cu``), so the whole inner loop is one launch with
     its stop test on the device and no iteration past it; eagerly the flag
-    is read on the host before each run. :meth:`_EagerLoop.put` writes a
+    is read on the host before each run. :meth:`_EagerLoop.run_plan`
+    generalizes it to a plan: a tuple whose items are program names, run
+    in order, and ``(flag, plan)`` pairs, a loop over the inner plan while
+    ``flag`` is set, nested to any depth (a whole jitted program of nested
+    ``lax.while_loop``s). On CUDA the first run of a plan under a key
+    captures its programs in the order of their first appearance, each
+    replayed once after its capture so that the next one's warm runs see
+    real state (that priming run's state is the plan's first program's to
+    reset), then builds the plan as one executable graph; every run is one
+    launch (``while_launches``). :meth:`_EagerLoop.put` writes a
     state entry from the host side (the result of a library call run
     between two programs)."""
 
@@ -253,6 +263,7 @@ class StepGraphs:
         self.captures = 0
         self.captures_bg = 0
         self.replays = 0
+        self.while_launches = 0
         self.pool_bytes = 0
         self.by_program = {n: collections.Counter() for n in programs}
         self._loops: Dict[tuple, "_GraphLoop"] = {}
@@ -288,6 +299,14 @@ class StepGraphs:
                                                      operands, static)
             loop.load(operands)
             yield loop
+
+    def _count_launch(self, names) -> None:
+        """One launch of a plan: a replay of each of its programs."""
+        with self._meta:
+            self.while_launches += 1
+            self.replays += len(names)
+            for name in names:
+                self.by_program[name]["replays"] += 1
 
     def _count(self, name: str, what: str, grown: int = 0) -> None:
         """Add one to ``what`` (``captures`` or ``replays``), overall and
@@ -333,8 +352,16 @@ class _EagerLoop:
             self.state, self.operands, **self.static))
 
     def run_while(self, name: str, flag: str) -> None:
-        while bool(self.state[flag]):
-            self.run(name)
+        self.run_plan(((flag, (name,)),))
+
+    def run_plan(self, plan: tuple) -> None:
+        for item in plan:
+            if isinstance(item, str):
+                self.run(item)
+                continue
+            flag, body = item
+            while bool(self.state[flag]):
+                self.run_plan(body)
 
     def put(self, **tensors) -> None:
         self.state.update(tensors)
@@ -348,15 +375,20 @@ class _EagerLoop:
 
 class _GraphLoop(_EagerLoop):
     """One key's static operand and state buffers and its captured
-    programs."""
+    programs. It refers to its :class:`StepGraphs` weakly: a set that is
+    dropped (a test's own) frees its graphs at once, by reference count.
+    Held in a reference cycle, they would wait for the garbage collector,
+    which may run inside another capture; a graph's destructor calls the
+    CUDA runtime, and that invalidates the capture."""
 
     def __init__(self, graphs: StepGraphs, key, device, operands, static):
-        super().__init__(graphs, {n: torch.empty(t.shape, dtype=t.dtype,
-                                                 device=device)
-                                  for n, t in operands.items()}, static)
+        super().__init__(weakref.proxy(graphs),
+                         {n: torch.empty(t.shape, dtype=t.dtype,
+                                         device=device)
+                          for n, t in operands.items()}, static)
         self.key, self.device = key, device
         self._captured: Dict[str, torch.cuda.CUDAGraph] = {}
-        self._loops: Dict[tuple, "_WhileLoop"] = {}
+        self._plans: Dict[tuple, "_PlanLoop"] = {}
 
     def load(self, operands) -> None:
         for n, t in operands.items():
@@ -370,16 +402,28 @@ class _GraphLoop(_EagerLoop):
         self.graphs._count(name, "replays")
 
     def run_while(self, name: str, flag: str) -> None:
-        loop = self._loops.get((name, flag))
+        plan = ((flag, (name,)),)
+        if plan not in self._plans and name not in self._captured:
+            self._captured[name] = self._capture(name, True)
+        self._launch(plan)
+
+    def run_plan(self, plan: tuple) -> None:
+        if plan not in self._plans:
+            for name in _programs_of(plan):
+                if name not in self._captured:
+                    self._captured[name] = self._capture(name, True)
+                    self.run(name)
+        self._launch(plan)
+
+    def _launch(self, plan: tuple) -> None:
+        loop = self._plans.get(plan)
         if loop is None:
-            body = self._captured.get(name)
-            if body is None:
-                body = self._captured[name] = self._capture(name, True)
-            loop = self._loops[(name, flag)] = _WhileLoop(
-                body, self.state[flag], f"{self.graphs.name}.{name}",
+            loop = self._plans[plan] = _PlanLoop(
+                plan, self._captured, self.state,
+                f"{self.graphs.name}.{'/'.join(_programs_of(plan))}",
                 self.key)
         loop.launch(self.device)
-        self.graphs._count(name, "replays")
+        self.graphs._count_launch(_programs_of(plan))
 
     def put(self, **tensors) -> None:
         for n, t in tensors.items():
@@ -412,30 +456,60 @@ class _GraphLoop(_EagerLoop):
         return graph
 
 
-class _WhileLoop:
-    """A captured program as the body of a conditional WHILE node
-    (``csrc/graph_while.cu``): one launch repeats it while ``flag`` (a
-    0-d bool CUDA tensor the program writes) is set. Keeps the body's
-    capture alive (its graph is embedded by copy, its tensors are the
-    capture's)."""
+def _programs_of(plan: tuple) -> list:
+    """A plan's program names in the order of their first appearance."""
+    out = []
+    for item in plan:
+        for name in ((item,) if isinstance(item, str)
+                     else _programs_of(item[1])):
+            if name not in out:
+                out.append(name)
+    return out
 
-    def __init__(self, body: torch.cuda.CUDAGraph, flag: torch.Tensor,
-                 label: str, key):
+
+class _PlanLoop:
+    """A plan of captured programs and WHILE loops over them as one
+    executable graph (``csrc/graph_while.cu``): one launch runs the plan,
+    each loop repeating its body while its flag (a 0-d bool CUDA tensor
+    of the state, which the body writes) is set. Keeps the captures it
+    embeds alive (their graphs are embedded by copy, their tensors are
+    the captures')."""
+
+    def __init__(self, plan: tuple, graphs: Dict[str, torch.cuda.CUDAGraph],
+                 state: Dict[str, torch.Tensor], label: str, key):
         import ctypes
 
         from cslam_tpu_torch.ops.nns import _lib_fn
-        if flag.dtype != torch.bool or flag.numel() != 1 or not flag.is_cuda:
-            raise ValueError(f"{label}: a while loop's flag is a 0-d bool "
-                             f"CUDA tensor, not {flag.dtype} "
-                             f"{tuple(flag.shape)}")
-        self.body, self.flag = body, flag
+        kinds, ptrs = [], []
+
+        def walk(items):
+            for item in items:
+                if isinstance(item, str):
+                    kinds.append(0)
+                    ptrs.append(graphs[item].raw_cuda_graph())
+                    continue
+                flag, body = item
+                t = state[flag]
+                if t.dtype != torch.bool or t.numel() != 1 or not t.is_cuda:
+                    raise ValueError(f"{label}: a while loop's flag is a 0-d "
+                                     f"bool CUDA tensor, not {flag} "
+                                     f"{t.dtype} {tuple(t.shape)}")
+                kinds.append(1)
+                ptrs.append(t.data_ptr())
+                walk(body)
+                kinds.append(2)
+                ptrs.append(None)
+
+        walk(plan)
+        self.graphs = [graphs[n] for n in _programs_of(plan)]
+        n = len(kinds)
         handle = ctypes.c_void_p()
-        graphs = (ctypes.c_void_p * 1)(body.raw_cuda_graph())
-        rc = _lib_fn("graph_while", "cslam_while_create")(
-            graphs, 1, flag.data_ptr(), ctypes.byref(handle))
+        rc = _lib_fn("graph_while", "cslam_plan_create")(
+            (ctypes.c_int * n)(*kinds), (ctypes.c_void_p * n)(*ptrs), n,
+            ctypes.byref(handle))
         if rc != 0:
-            raise RuntimeError(f"{label}: building the CUDA graph while "
-                               f"loop failed for key {key}: cudaError {rc}")
+            raise RuntimeError(f"{label}: building the CUDA graph plan "
+                               f"failed for key {key}: cudaError {rc}")
         self._handle = handle
 
     def launch(self, device) -> None:
@@ -443,5 +517,5 @@ class _WhileLoop:
         rc = _lib_fn("graph_while", "cslam_while_launch")(
             self._handle, torch.cuda.current_stream(device).cuda_stream)
         if rc != 0:
-            raise RuntimeError(f"CUDA graph while loop launch failed: "
+            raise RuntimeError(f"CUDA graph plan launch failed: "
                                f"cudaError {rc}")

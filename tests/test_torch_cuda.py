@@ -608,6 +608,95 @@ def test_step_graphs_while_loop_stops_on_device():
 
 
 @pytest.mark.cuda
+def test_step_graphs_nested_plan_on_card():
+    """``StepGraphs.run_plan``: an outer loop whose body holds an inner
+    loop (WHILE nodes nested in one launch) gives the eager plan's
+    counts, for several operands, with one capture per program."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (a CUDA graph has no CPU mode)")
+    from cslam_tpu_torch.utils.tier_graphs import StepGraphs
+
+    def init(s, o):
+        zero = torch.zeros((), dtype=torch.int32, device=o["n"].device)
+        return {"i": zero, "total": zero.clone(), "outer": o["n"] > 0}
+
+    def start(s, o):
+        return {"j": torch.zeros_like(s["i"]), "inner": s["i"] >= 0}
+
+    def step(s, o):
+        j = s["j"] + 1
+        return {"j": j, "total": s["total"] + s["i"] * j,
+                "inner": j <= s["i"]}
+
+    def end(s, o):
+        i = s["i"] + 1
+        return {"i": i, "outer": i < o["n"]}
+
+    graphs = StepGraphs("plan_test", {"init": init, "start": start,
+                                      "step": step, "end": end})
+    plan = ("init", ("outer", ("start", ("inner", ("step",)), "end")))
+    for n in (4, 0, 6):
+        out = {}
+        for eager in (False, True):
+            with graphs.solve("cuda", {"n": torch.tensor(
+                    n, dtype=torch.int32, device="cuda")},
+                    eager=eager) as loop:
+                loop.run_plan(plan)
+                out[eager] = [t.item() for t in loop.take("i", "total")]
+        want = sum(i * j for i in range(n) for j in range(1, i + 2))
+        assert out[False] == out[True] == [n, want]
+    assert all(c["captures"] == 1 for c in graphs.by_program.values())
+    assert graphs.while_launches == 3
+
+
+def _dist_problem(robots=3, poses=32, sep_every=8):
+    from cslam_tpu_torch.tools import distributed_pgo_bench as bench
+    gt, problem, _, n_sep = bench.build(robots, poses,
+                                        np.random.default_rng(0), sep_every)
+    return gt, problem, n_sep
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dense_max", [512, 16])
+def test_graphed_distributed_solve_matches_eager_on_card(dense_max,
+                                                          monkeypatch):
+    """``distributed_optimize`` on a ``StackedMesh`` of the card: the plan
+    launched once (dense tier; with ``_DENSE_SOLVE_MAX_NODES`` at 16, the
+    batched PCG tier) against the same programs launched eagerly: the
+    same sweeps, separators on the same side of 0.5, both outliers out,
+    positions within 1e-2 m (the GNC graduation's limit: the card's
+    atomic sums round differently); a second solve of the key captures
+    nothing and makes no host read before its results."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (a CUDA graph has no CPU mode)")
+    from cslam_tpu_torch.pgo import distributed, solver
+    from cslam_tpu_torch.utils.robot_mesh import StackedMesh
+    monkeypatch.setattr(solver, "_DENSE_SOLVE_MAX_NODES", dense_max)
+    gt, problem, n_sep = _dist_problem()
+    mesh = StackedMesh(3, "cuda")
+    runs = {}
+    for mode in ("graphed", "eager", "graphed"):
+        before = (distributed.DIST_GRAPHS.captures,
+                  distributed.DIST_GRAPHS.while_launches)
+        est, info = distributed.distributed_optimize(
+            problem, mesh, sweeps=30, lm_iters=8, cg_iters=60,
+            return_info=True, _eager=mode == "eager")
+        runs.setdefault(mode, []).append(
+            (est, info, distributed.DIST_GRAPHS.captures - before[0],
+             distributed.DIST_GRAPHS.while_launches - before[1]))
+    (g1, g2), (e,) = runs["graphed"], runs["eager"]
+    assert g2[2] == 0 and g2[3] == 1 and e[3] == 0
+    for est, info, _, _ in (g1, g2):
+        assert info.sweeps_used == e[1].sweeps_used
+        np.testing.assert_array_equal(info.sep_weights > 0.5,
+                                      e[1].sep_weights > 0.5)
+        assert np.all(info.sep_weights[n_sep:n_sep + 2] < 0.5)
+        diff = max(np.abs(est[k][:3, 3] - e[0][k][:3, 3]).max()
+                   for k in est)
+        assert diff <= 1e-2
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("poses", [200, 60])
 def test_graphed_mac_selection_matches_eager_on_card(poses):
     """MAC's FW loop replayed from its captured programs (Woodbury tier at
