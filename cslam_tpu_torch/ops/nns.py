@@ -87,13 +87,15 @@ SOURCES = {"bank_scan": _CSRC / "bank_scan.cu",
            # LOBPCG's small eigensolves (``ops/small_linalg.py``)
            "small_eigh": _CSRC / "small_eigh.cu",
            # while loops of CUDA graphs (``utils/tier_graphs.py``)
-           "graph_while": _CSRC / "graph_while.cu"}
+           "graph_while": _CSRC / "graph_while.cu",
+           # fixed-order sums of the solvers (``ops/segment_sum.py``)
+           "segment_sum": _CSRC / "segment_sum.cu"}
 BUILD_DIR = _CSRC / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 
-_vp, _ci = ctypes.c_void_p, ctypes.c_int
+_vp, _ci, _cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 #: each library's C entry points and their argument types
 _ENTRY = {
     "bank_scan": {
@@ -110,6 +112,8 @@ _ENTRY = {
     "graph_while": {
         "cslam_plan_create": [_vp, _vp, _ci, _vp],
         "cslam_while_launch": [_vp, _vp]},
+    "segment_sum": {
+        "cslam_segment_sum": [_vp, _vp, _vp, _vp, _cll, _ci, _vp, _vp]},
 }
 
 #: K1 kernel launches since import (or since the caller last reset it)

@@ -12,7 +12,11 @@ Counterpart of ``cslam_tpu/pgo/chordal.py`` (the equivalent of GTSAM's
 
 The rotation normal matrix keeps the JAX package's de-interleaved unknown
 ordering ``x[b * Np + n]``; its ``[Np, Np]`` component blocks are assembled
-here with ``index_put_`` scatter-adds (the TPU needed one-hot matmuls).
+here by segment sums in an order fixed per graph (``ops.segment_sum``; the
+TPU needed one-hot matmuls, and the card's atomic scatter-adds change
+their order from run to run): one sum per index pair ``(i, i)``, ``(j, i)``,
+``(i, j)``, ``(j, j)``, each carrying every component block that pair
+feeds as a column.
 
 Anchored at the first prior's node and pose. Works straight on the padded
 ``PoseGraphArrays`` (masks keep inactive nodes inert).
@@ -24,14 +28,41 @@ from typing import Optional
 import torch
 
 from cslam_tpu_torch.ops import cholesky_solve, highest_precision
+from cslam_tpu_torch.ops.segment_sum import segment_plan, segment_sum
 from cslam_tpu_torch.pgo.factor_graph import PoseGraphArrays
 
+#: the index pairs of the normal matrix's sums, and the translation rhs
+_PAIRS = {"ii": ("edge_i", "edge_i"), "ji": ("edge_j", "edge_i"),
+          "ij": ("edge_i", "edge_j"), "jj": ("edge_j", "edge_j")}
 
-def _quad(i_idx, j_idx, v, Np):
-    """``Si^T diag(v) Sj``: entry (i_e, j_e) += v_e, an [Np, Np] matrix."""
-    M = torch.zeros((Np, Np), dtype=v.dtype, device=v.device)
-    M.index_put_((i_idx, j_idx), v, accumulate=True)
-    return M
+
+def _plans(g: PoseGraphArrays) -> dict:
+    """The chordal sums' segment plans, built from ``g``'s index fields
+    once and cached on it (padded edges left out)."""
+    cache = g.__dict__.setdefault("_segment_plans", {})
+    if ("chordal", 1) not in cache:
+        Np = g.poses.shape[0]
+        ev = g.edge_valid > 0
+        plans = {name: segment_plan(getattr(g, a) * Np + getattr(g, b), ev,
+                                    Np * Np, compact=True)
+                 for name, (a, b) in _PAIRS.items()}
+        plans["rhs"] = segment_plan(torch.cat([g.edge_j, g.edge_i]),
+                                    torch.cat([ev, ev]), Np)
+        cache["chordal", 1] = plans
+    return cache["chordal", 1]
+
+
+def _quads(plan, columns, Np):
+    """``Si^T diag(v) Sj`` (entry (i_e, j_e) += v_e) for each column ``v``
+    of ``columns`` ``[E, C]`` over one index pair, summed in one pass:
+    ``quad(c)`` places column ``c``'s as an ``[Np, Np]`` matrix."""
+    sums = segment_sum(columns, plan)
+
+    def quad(c):
+        M = sums.new_zeros(Np * Np + sums.shape[0])
+        return M.index_copy_(0, plan.dest, sums[:, c])[:Np * Np].reshape(
+            Np, Np)
+    return quad
 
 
 @highest_precision
@@ -68,15 +99,22 @@ def chordal_initialize(g: PoseGraphArrays,
     #          - Sj^T diag(w Q_bc) Si  -  Si^T diag(w Q_cb) Sj
     Q = R_meas.transpose(1, 2)                       # [E, 3, 3]
     QtQ = torch.einsum("eab,eac->ebc", Q, Q)
-    L_j = _quad(ej, ej, w, Np)
+    plans = _plans(g)
+    # column 9 of the first three: w alone, the translation Laplacian's
+    ii = _quads(plans["ii"], torch.cat(
+        [(w[:, None, None] * QtQ).reshape(-1, 9), w[:, None]], 1), Np)
+    ji = _quads(plans["ji"], torch.cat(
+        [(w[:, None, None] * Q).reshape(-1, 9), w[:, None]], 1), Np)
+    ij = _quads(plans["ij"], torch.cat(
+        [(w[:, None, None] * Q.transpose(1, 2)).reshape(-1, 9),
+         w[:, None]], 1), Np)
+    L_j = _quads(plans["jj"], w[:, None], Np)(0)
     anchor_block = big * torch.outer(A, A) + torch.diag(pad)
     rows = []
     for b in range(3):
         row = []
         for c in range(3):
-            blk = (_quad(ei, ei, w * QtQ[:, b, c], Np)
-                   - _quad(ej, ei, w * Q[:, b, c], Np)
-                   - _quad(ei, ej, w * Q[:, c, b], Np))
+            blk = ii(3 * b + c) - ji(3 * b + c) - ij(3 * b + c)
             if b == c:
                 blk = blk + L_j + anchor_block
             row.append(blk)
@@ -106,12 +144,9 @@ def chordal_initialize(g: PoseGraphArrays,
 
     # translation block: t_j - t_i = R_i t_ij. One [Np, Np] weighted
     # Laplacian Cholesky, three right-hand sides.
-    L = (_quad(ej, ej, w, Np) + _quad(ei, ei, w, Np)
-         - _quad(ej, ei, w, Np) - _quad(ei, ej, w, Np) + anchor_block)
+    L = L_j + ii(9) - ji(9) - ij(9) + anchor_block
     b_e = torch.einsum("eij,ej->ei", R[ei], t_meas) * w[:, None]
-    bt = torch.zeros((Np, 3), dtype=dtype, device=dev)
-    bt.index_add_(0, ej, b_e)
-    bt.index_add_(0, ei, -b_e)
+    bt = segment_sum(torch.cat([b_e, -b_e]), plans["rhs"])
     bt = bt + big * torch.outer(A, anchor_pose[:3, 3])
     t = cholesky_solve(L, bt)                        # [Np, 3]
 

@@ -48,6 +48,8 @@ import numpy as np
 import torch
 
 from cslam_tpu_torch.ops import highest_precision, se3
+from cslam_tpu_torch.ops.segment_sum import (plan_from, plan_operands,
+                                             segment_plan, segment_sum)
 from cslam_tpu_torch.pgo import solver
 from cslam_tpu_torch.pgo.factor_graph import (FactorGraph, PoseGraphArrays,
                                               _tier)
@@ -300,17 +302,23 @@ def _repad(g: PoseGraphArrays, np_tier: int, ne_tier: int,
 # ---------------------------------------------------------------------------
 
 
+def _separator_slots(me: torch.Tensor, sep: dict):
+    """Which separators are incident to each robot of ``me`` ``[n]``, and
+    at which of its poses: (on_r0 [n, S], incident [n, S], my_idx [n,
+    S]). Fixed per problem (no pose enters)."""
+    on_r0 = sep["r0"][None] == me[:, None]
+    on_r1 = sep["r1"][None] == me[:, None]
+    incident = (on_r0 | on_r1) & (sep["valid"] > 0)
+    return on_r0, incident, torch.where(on_r0, sep["k0"], sep["k1"])
+
+
 def _separator_priors(me: torch.Tensor, all_poses: torch.Tensor, sep: dict):
     """Turn inter-robot edges incident to each robot of ``me`` ``[n]`` into
     absolute priors. Returns (idx [n, S], target [n, S, 4, 4], sqrt_info
     [n, S, 6], valid [n, S])."""
-    on_r0 = sep["r0"][None] == me[:, None]
-    on_r1 = sep["r1"][None] == me[:, None]
-    incident = (on_r0 | on_r1) & (sep["valid"] > 0)
-
+    on_r0, incident, my_idx = _separator_slots(me, sep)
     other_rid = torch.where(on_r0, sep["r1"], sep["r0"])
     other_idx = torch.where(on_r0, sep["k1"], sep["k0"])
-    my_idx = torch.where(on_r0, sep["k0"], sep["k1"])
     other_pose = all_poses[other_rid, other_idx]
     # Z = X0^-1 X1  ->  X0 = X1 Z^-1  /  X1 = X0 Z
     target_r0 = other_pose @ se3.inverse(sep["meas"])
@@ -338,10 +346,65 @@ def _sep_residuals(all_poses: torch.Tensor, sep: dict):
     return r, torch.sum(r * r, dim=-1)
 
 
+def _coarse_edges(sep: dict, cross: dict, segments: int, seg_len: int):
+    """The coarse level's edge list, separators then crossing intra edges:
+    endpoints (r0, k0, r1, k1), their coarse vertices ``r * segments +
+    segment`` (v0, v1) and their segments (s0, s1)."""
+    M = segments
+    r0 = torch.cat([sep["r0"], cross["r"]])
+    k0 = torch.cat([sep["k0"], cross["ki"]])
+    r1 = torch.cat([sep["r1"], cross["r"]])
+    k1 = torch.cat([sep["k1"], cross["kj"]])
+    s0 = torch.clamp(k0 // seg_len, max=M - 1)
+    s1 = torch.clamp(k1 // seg_len, max=M - 1)
+    return r0, k0, r1, k1, r0 * M + s0, r1 * M + s1, s0, s1
+
+
+def _no_cross(dtype, dev) -> dict:
+    """The crossing-edge slot of problems built before the coarse
+    metadata existed: one invalid edge."""
+    return {"r": torch.zeros(1, dtype=torch.int64, device=dev),
+            "ki": torch.zeros(1, dtype=torch.int64, device=dev),
+            "kj": torch.zeros(1, dtype=torch.int64, device=dev),
+            "meas": torch.eye(4, dtype=dtype, device=dev)[None],
+            "sqrt_info": torch.ones((1, 6), dtype=dtype, device=dev),
+            "valid": torch.zeros(1, dtype=dtype, device=dev)}
+
+
+def _coarse_plans(sep: dict, nb_robots: int, segments: int,
+                  seg_len: int) -> dict:
+    """The coarse alignment's segment plans (``ops.segment_sum``), fixed
+    per problem: ``pair``, the ``[V, V]`` blocks (v1, v1), (v0, v0), (v0,
+    v1), (v1, v0) of every valid coarse edge into ``[V * V]``; ``node``,
+    the right-hand side's (v1; v0) into ``[V]`` (V = robots x
+    segments)."""
+    cross = sep.get("cross") or _no_cross(sep["meas"].dtype,
+                                          sep["meas"].device)
+    *_, v0, v1, _, _ = _coarse_edges(sep, cross, segments, seg_len)
+    V = nb_robots * segments
+    valid = torch.cat([sep["valid"], cross["valid"]]) > 0
+    return {"pair": segment_plan(
+                torch.cat([v1 * V + v1, v0 * V + v0, v0 * V + v1,
+                           v1 * V + v0]), valid.repeat(4), V * V,
+                compact=True),
+            "node": segment_plan(torch.cat([v1, v0]), valid.repeat(2), V)}
+
+
 def _coarse_alignment(all_poses: torch.Tensor, sep: dict,
                       w_sep: torch.Tensor, cross: Optional[dict],
                       nb_robots: int, segments: int, seg_len: int, mu=None,
                       barc_sq: float = 16.81, iters: int = 3) -> torch.Tensor:
+    """:func:`_coarse_alignment_counted`'s aligned blocks alone."""
+    return _coarse_alignment_counted(all_poses, sep, w_sep, cross, nb_robots,
+                                     segments, seg_len, mu, barc_sq,
+                                     iters)[0]
+
+
+def _coarse_alignment_counted(all_poses: torch.Tensor, sep: dict,
+                              w_sep: torch.Tensor, cross: Optional[dict],
+                              nb_robots: int, segments: int, seg_len: int,
+                              mu=None, barc_sq: float = 16.81,
+                              iters: int = 3):
     """Aggregation-multigrid coarse level: one rigid SE(3) correction per
     CHAIN SEGMENT (``segments`` per robot), solved as a replicated tiny
     Gauss-Newton problem and applied to the gathered pose blocks.
@@ -353,24 +416,25 @@ def _coarse_alignment(all_poses: torch.Tensor, sep: dict,
     makes the joint optimum a stationary point of the coarse problem
     (H = I): the accelerator is bias-free and can run every sweep.
 
-    The normal equations are summed block by block with ``index_put_``
-    (the JAX package formed the ``[E, 6, V, 6]`` Jacobian with one-hot
-    matmuls) and solved by Cholesky (the JAX package: ``linalg.solve``);
-    a failed solve (non-finite step) leaves that iteration's correction at
+    The normal equations are summed block by block in a fixed order
+    (``sep["plans"]``, which the step programs pass, or
+    :func:`_coarse_plans` made here; the JAX package formed the
+    ``[E, 6, V, 6]`` Jacobian with one-hot matmuls) and solved by
+    Cholesky (:func:`_coarse_step`; the JAX package: ``linalg.solve``); a
+    failed solve (non-finite step) leaves that iteration's correction at
     identity without a host read. ``6 * R * segments`` unknowns, a dense
-    solve.
+    solve. Returns (the aligned blocks, the iterations whose Cholesky
+    failed as a 0-d int64).
     """
     R = nb_robots
     M = segments
     V = R * M
     dtype, dev = all_poses.dtype, all_poses.device
     if cross is None:  # problems built before the coarse metadata existed
-        cross = {"r": torch.zeros(1, dtype=torch.int64, device=dev),
-                 "ki": torch.zeros(1, dtype=torch.int64, device=dev),
-                 "kj": torch.zeros(1, dtype=torch.int64, device=dev),
-                 "meas": torch.eye(4, dtype=dtype, device=dev)[None],
-                 "sqrt_info": torch.ones((1, 6), dtype=dtype, device=dev),
-                 "valid": torch.zeros(1, dtype=dtype, device=dev)}
+        cross = _no_cross(dtype, dev)
+    plans = sep.get("plans")
+    if plans is None:
+        plans = _coarse_plans({**sep, "cross": cross}, R, M, seg_len)
 
     # TLS-reweight robust crossing edges (intra-robot loop closures that
     # cross segment boundaries) from their current chi2 at the same mu the
@@ -390,17 +454,10 @@ def _coarse_alignment(all_poses: torch.Tensor, sep: dict,
 
     # unified coarse edge list: separators + crossing intra edges
     # endpoints as (robot, local pose index); separator weights dynamic
-    r0 = torch.cat([sep["r0"], cross["r"]])
-    k0 = torch.cat([sep["k0"], cross["ki"]])
-    r1 = torch.cat([sep["r1"], cross["r"]])
-    k1 = torch.cat([sep["k1"], cross["kj"]])
+    r0, k0, r1, k1, _, _, s0, s1 = _coarse_edges(sep, cross, M, seg_len)
     meas = torch.cat([sep["meas"], cross["meas"]])
     si = torch.cat([sep["sqrt_info"], cross["sqrt_info"]])
     w = torch.cat([w_sep, w_cross])
-    s0 = torch.clamp(k0 // seg_len, max=M - 1)
-    s1 = torch.clamp(k1 // seg_len, max=M - 1)
-    v0 = r0 * M + s0
-    v1 = r1 * M + s1
     sqrt_w = torch.sqrt(w)
     si_w = si * sqrt_w[:, None]
     meas_inv = se3.inverse(meas)
@@ -410,6 +467,7 @@ def _coarse_alignment(all_poses: torch.Tensor, sep: dict,
     prior_strong = torch.full((6,), 1e6, dtype=dtype, device=dev)
 
     H = eye.expand(R, M, 4, 4)
+    failures = torch.zeros((), dtype=torch.int64, device=dev)
     for _ in range(iters):
         # current corrected endpoint poses: pose k of robot r moves by
         # H[r, k // seg_len]
@@ -420,16 +478,11 @@ def _coarse_alignment(all_poses: torch.Tensor, sep: dict,
         J1 = se3.se3_jr_inv(e_raw) @ se3.adjoint(se3.inverse(X1))
         J1w = si_w[:, :, None] * J1                       # [E, 6, 6]
         ew = e_raw * si_w
-        A = J1w.transpose(1, 2) @ J1w
+        A = (J1w.transpose(1, 2) @ J1w).reshape(-1, 36)
         g = torch.einsum("eai,ea->ei", J1w, ew)
-        Hb = torch.zeros((V, V, 6, 6), dtype=dtype, device=dev)
-        Hb.index_put_((v1, v1), A, accumulate=True)
-        Hb.index_put_((v0, v0), A, accumulate=True)
-        Hb.index_put_((v0, v1), -A, accumulate=True)
-        Hb.index_put_((v1, v0), -A, accumulate=True)
-        b = torch.zeros((V, 6), dtype=dtype, device=dev)
-        b.index_add_(0, v1, g)
-        b.index_add_(0, v0, -g)
+        Hb = segment_sum(torch.cat([A, A, -A, -A]), plans["pair"],
+                         rows=V * V).reshape(V, V, 6, 6)
+        b = segment_sum(torch.cat([g, -g]), plans["node"])
         Hmat = Hb.permute(0, 2, 1, 3).reshape(6 * V, 6 * V)
         # gauge prior: pin robot 0 segment 0 hard, weak pull to I
         # elsewhere. The weak jitter scales with the Hessian: crossing-edge
@@ -443,15 +496,8 @@ def _coarse_alignment(all_poses: torch.Tensor, sep: dict,
                            torch.ones(6 * (V - 1), dtype=dtype, device=dev)
                            * weak])
         Hmat = Hmat + torch.diag(prior)
-        # symmetric positive definite by its prior: Cholesky and two
-        # triangular solves (cuBLAS), which a CUDA graph WHILE body may
-        # hold; cuSOLVER's LU (``solve_ex``) allocates memory inside the
-        # graph at this size, which a WHILE body may not
-        L, info = torch.linalg.cholesky_ex(Hmat)
-        L = torch.where(info == 0, L, torch.full_like(L, float("nan")))
-        y = torch.linalg.solve_triangular(L, b.reshape(6 * V, 1),
-                                          upper=False)
-        step = torch.linalg.solve_triangular(L.mT, y, upper=True)
+        step, failed = _coarse_step(Hmat, b.reshape(6 * V, 1))
+        failures = failures + failed.to(torch.int64)
         delta = -step.reshape(V, 6)
         # the coarse level is a bias-free accelerator: a numerically failed
         # solve must degrade to "no correction", never poison the state
@@ -461,7 +507,21 @@ def _coarse_alignment(all_poses: torch.Tensor, sep: dict,
 
     Np = all_poses.shape[1]
     seg_of = torch.clamp(torch.arange(Np, device=dev) // seg_len, max=M - 1)
-    return H[:, seg_of] @ all_poses
+    return H[:, seg_of] @ all_poses, failures
+
+
+def _coarse_step(Hmat: torch.Tensor, b: torch.Tensor):
+    """``Hmat^-1 b`` of the coarse alignment's system, symmetric positive
+    definite by its gauge prior: Cholesky and two triangular solves
+    (cuBLAS), which a CUDA graph WHILE body may hold; cuSOLVER's LU
+    (``solve_ex``, the JAX package's ``linalg.solve``) allocates memory
+    inside the graph at this size, which a WHILE body may not. Returns
+    (the step, NaN where the factorization failed; whether it failed, a
+    0-d bool)."""
+    L, info = torch.linalg.cholesky_ex(Hmat)
+    L = torch.where(info == 0, L, torch.full_like(L, float("nan")))
+    y = torch.linalg.solve_triangular(L, b, upper=False)
+    return torch.linalg.solve_triangular(L.mT, y, upper=True), info != 0
 
 
 # ---------------------------------------------------------------------------
@@ -519,17 +579,19 @@ def _batched_init(s, o, robots, **_):
                                                        robots),
             "lam": o["tols"][:1].repeat(robots), "active": active,
             "iters": iters, "cg_total": torch.zeros_like(iters),
+            "coarse_fail": torch.zeros_like(iters[0]),
             "lm_on": torch.any(active),
             "status": _batched_status(active, iters)}
 
 
-def _batched_status(active, iters, cg_total=None, cg_active=None):
+def _batched_status(active, iters, cg_total=None, cg_active=None,
+                    coarse_fail=None):
     zero = torch.zeros_like(iters[0])
     return solver._status(
         ~torch.any(active), torch.amax(iters),
         zero if cg_total is None else torch.amax(cg_total),
         torch.zeros_like(active[0]) if cg_active is None
-        else torch.any(cg_active))
+        else torch.any(cg_active), coarse_fail)
 
 
 def _batched_update(s, gf, w, delta, cap, rel_tol, R):
@@ -563,30 +625,26 @@ def _batched_step(s, o, robots, steps=1, **_):
     """``steps`` iterations of every robot's LM (dense tier), each update
     selected by the robot's ``active`` flag (cleared at its stop or its
     cap)."""
-    gf, w = solver._graph_of(o), o["weights"]
+    gf, w, plans = solver._graph_of(o), o["weights"], solver._plans_of(o)
     R = robots
-    N, Ne = gf.poses.shape[0], gf.edge_i.shape[0]
+    N = gf.poses.shape[0]
     Np = N // R
     dtype, dev = gf.poses.dtype, gf.poses.device
     we = w * gf.edge_valid
     node_robot = _node_robot(gf, R)
-    edge_robot = torch.arange(Ne, device=dev) // (Ne // R)
-    ei, ej = gf.edge_i % Np, gf.edge_j % Np
     nodes = torch.arange(Np, device=dev)
     eye6 = torch.eye(6, dtype=dtype, device=dev)
     s = dict(s)
     for _ in range(steps):
         r, Ji, Jj, rp, Jp = solver._linearize(s["poses"], gf)
-        grad = solver._assemble_grad(gf, Ji, Jj, Jp, r * we[:, None], rp)
-        D = solver._hessian_blocks(gf, Ji, Jj, Jp, w)
+        grad = solver._assemble_grad(gf, Ji, Jj, Jp, r * we[:, None], rp,
+                                     plans)
+        D = solver._hessian_blocks(gf, Ji, Jj, Jp, w, plans)
         diag_h = torch.clamp(torch.diagonal(D, dim1=1, dim2=2), min=1e-8)
         # the dense normal equations of every robot: solver's
         # _dense_normal_solve with a leading robot axis
-        JiT_Jj = Ji.transpose(1, 2) @ Jj * we[:, None, None]
-        H = torch.zeros((R, Np, Np, 6, 6), dtype=dtype, device=dev)
-        H.index_put_((edge_robot, ei, ej), JiT_Jj, accumulate=True)
-        H.index_put_((edge_robot, ej, ei), JiT_Jj.transpose(1, 2),
-                     accumulate=True)
+        H = solver._off_diagonal_blocks(gf, Ji, Jj, w, plans, R).reshape(
+            R, Np, Np, 6, 6)
         damp = (s["lam"][node_robot][:, None, None] * diag_h[:, :, None]
                 * eye6[None])
         H[:, nodes, nodes] += (D + damp).reshape(R, Np, 6, 6)
@@ -637,7 +695,8 @@ def _batched_lm(g: PoseGraphArrays, weights: torch.Tensor,
     tols, caps = solver._scalar_operands(g.poses.device, g.poses.dtype,
                                          [init_lambda, rel_tol], [max_iters])
     operands = {n: getattr(gf, n) for n in solver._GRAPH_FIELDS}
-    operands.update(weights=weights.reshape(-1), tols=tols, caps=caps)
+    operands.update(weights=weights.reshape(-1), tols=tols, caps=caps,
+                    **solver._plan_operands(solver.segment_plans(gf, R)))
     with BATCHED_GRAPHS.solve(g.poses.device, operands, eager=eager,
                               robots=R, steps=solver._LM_STEPS) as loop:
         solver._run_steps(loop)
@@ -659,37 +718,25 @@ def _batched_lm(g: PoseGraphArrays, weights: torch.Tensor,
 
 
 def _batched_coarse_factor(gf, poses, Ji, Jj, Jp, weights, lam_n, diag_h,
-                           R):
+                           R, plans):
     """``solver._coarse_factor`` of every robot at once: the Galerkin
     operator of each robot's own ``S`` segments (``solver._COARSE_SEG``
     nodes each), ``[R, 6S, 6S]``, ridged by its own largest diagonal entry
-    and factored by one batched Cholesky (NaN where it failed). Returns
-    ``(seg, A, chol)``: each node's segment in ``[R * S]``, the
-    prolongation ``Ad(X_n^-1)`` and the factors."""
+    and factored by one batched Cholesky (NaN where it failed), its blocks
+    summed by ``plans`` (``seg``, ``seg_pair`` for ``R`` robots). Returns
+    ``(seg, A, chol, failed)``: each node's segment in ``[R * S]``, the
+    prolongation ``Ad(X_n^-1)``, the factors and which failed ``[R]``."""
     N = gf.poses.shape[0]
     Np = N // R
     S = max(1, Np // solver._COARSE_SEG)
     dtype, dev = Ji.dtype, Ji.device
-    node_robot = _node_robot(gf, R)
-    seg = torch.clamp(torch.arange(Np, device=dev) // solver._COARSE_SEG,
-                      max=S - 1).repeat(R)
+    seg = solver._coarse_segments(N, R, dev)
     A = se3.adjoint(se3.inverse(poses)) * gf.node_valid[:, None, None]
-    re, rp = node_robot[gf.edge_i], node_robot[gf.prior_idx]
-    si, sj, sp = seg[gf.edge_i], seg[gf.edge_j], seg[gf.prior_idx]
-    Gi = Ji @ A[gf.edge_i]
-    Gj = Jj @ A[gf.edge_j]
-    w = (weights * gf.edge_valid)[:, None, None]
-    Gp = Jp @ A[gf.prior_idx]
-    Hc = torch.zeros((R, S, S, 6, 6), dtype=dtype, device=dev)
-    for a, Ga in ((si, Gi), (sj, Gj)):
-        for b, Gb in ((si, Gi), (sj, Gj)):
-            Hc.index_put_((re, a, b), Ga.transpose(1, 2) @ Gb * w,
-                          accumulate=True)
-    Hc.index_put_((rp, sp, sp), Gp.transpose(1, 2) @ Gp, accumulate=True)
-    # damping P^T (lam diag H) P lands on the block diagonal
-    T = torch.einsum("nai,na,naj->nij", A, lam_n[:, None] * diag_h, A)
-    Dc = torch.zeros((R * S, 6, 6), dtype=dtype, device=dev)
-    Dc.index_add_(0, node_robot * S + seg, T)
+    Hc, T = solver._galerkin_blocks(gf, A, Ji, Jj, Jp, weights,
+                                    lam_n[:, None] * diag_h, plans,
+                                    R * S * S, R)
+    Hc = Hc.reshape(R, S, S, 6, 6)
+    Dc = segment_sum(T.reshape(N, 36), solver._plan(plans, gf, "seg", R))
     segs = torch.arange(S, device=dev)
     Hc[:, segs, segs] += Dc.reshape(R, S, 6, 6)
     Hc = Hc.permute(0, 1, 3, 2, 4).reshape(R, S * 6, S * 6)
@@ -700,25 +747,26 @@ def _batched_coarse_factor(gf, poses, Ji, Jj, Jp, weights, lam_n, diag_h,
     chol, info = torch.linalg.cholesky_ex(Hc)
     chol = torch.where((info == 0)[:, None, None], chol,
                        torch.full_like(chol, float("nan")))
-    return node_robot * S + seg, A, chol
+    return seg, A, chol, info != 0
 
 
-def _batched_coarse_apply(seg, A, chol, r):
+def _batched_coarse_apply(seg, A, chol, r, plan):
     """``P H_c^-1 P^T r`` with every robot's own coarse block (two
     triangular solves: the batched ``cholesky_solve`` is MAGMA on the
-    card)."""
+    card), ``P^T r`` summed by the ``seg`` plan."""
     R, S6 = chol.shape[:2]
-    c = torch.zeros((R * S6 // 6, 6), dtype=r.dtype, device=r.device)
-    c.index_add_(0, seg, torch.einsum("nba,nb->na", A, r))
+    c = segment_sum(torch.einsum("nba,nb->na", A, r), plan)
     y = torch.linalg.solve_triangular(chol, c.reshape(R, S6, 1),
                                       upper=False)
     y = torch.linalg.solve_triangular(chol.mT, y, upper=True)
     return torch.einsum("nab,nb->na", A, y.reshape(-1, 6)[seg])
 
 
-def _batched_preconditioner(s, coarse):
+def _batched_preconditioner(s, o, coarse, robots):
+    plan = solver._plan(solver._plans_of(o), solver._graph_of(o), "seg",
+                        robots) if coarse else None
     return solver._preconditioner(s["M_inv"], (lambda r: _batched_coarse_apply(
-        s["seg"], s["A"], s["chol"], r)) if coarse else None)
+        s["seg"], s["A"], s["chol"], r, plan)) if coarse else None)
 
 
 def _batched_cg_more(i, r, b_norm, max_iters, tol, R):
@@ -731,24 +779,27 @@ def _batched_head(s, o, robots, coarse=True, **_):
     """Every robot's LM iteration up to its solve (``solver._lm_head``):
     linearization, block-Jacobi inverses, the coarse factors and PCG's
     initial state, none to run for a robot that has stopped."""
-    gf, w = solver._graph_of(o), o["weights"]
+    gf, w, plans = solver._graph_of(o), o["weights"], solver._plans_of(o)
     R = robots
     node_robot = _node_robot(gf, R)
     r, Ji, Jj, rp, Jp = solver._linearize(s["poses"], gf)
     grad = solver._assemble_grad(gf, Ji, Jj, Jp,
-                                 r * (w * gf.edge_valid)[:, None], rp)
-    D = solver._hessian_blocks(gf, Ji, Jj, Jp, w)
+                                 r * (w * gf.edge_valid)[:, None], rp, plans)
+    D = solver._hessian_blocks(gf, Ji, Jj, Jp, w, plans)
     diag_h = torch.clamp(torch.diagonal(D, dim1=1, dim2=2), min=1e-8)
     lam_n = s["lam"][node_robot]
     M_inv = torch.linalg.inv_ex(
         D + lam_n[:, None, None] * diag_h[:, None]
         * torch.eye(6, dtype=D.dtype, device=D.device)[None])[0]
-    out = {"Ji": Ji, "Jj": Jj, "Jp": Jp, "diag_h": diag_h, "M_inv": M_inv}
+    out = {"Ji": Ji, "Jj": Jj, "Jp": Jp, "diag_h": diag_h, "M_inv": M_inv,
+           "coarse_fail": s["coarse_fail"]}
     if coarse:
-        out["seg"], out["A"], out["chol"] = _batched_coarse_factor(
-            gf, s["poses"], Ji, Jj, Jp, w, lam_n, diag_h, R)
+        out["seg"], out["A"], out["chol"], failed = _batched_coarse_factor(
+            gf, s["poses"], Ji, Jj, Jp, w, lam_n, diag_h, R, plans)
+        out["coarse_fail"] = s["coarse_fail"] + torch.sum(
+            failed & s["active"])
     b = -grad
-    z = _batched_preconditioner(out, coarse)(b)
+    z = _batched_preconditioner(out, o, coarse, R)(b)
     b_norm = torch.clamp(torch.sqrt(_robot_sum(b * b, R)), min=1e-30)
     cg_i = torch.zeros(R, dtype=torch.int64, device=b.device)
     cg_active = _batched_cg_more(cg_i, b, b_norm, o["caps"][1],
@@ -757,7 +808,8 @@ def _batched_head(s, o, robots, coarse=True, **_):
                rz=_robot_sum(b * z, R), b_norm=b_norm, cg_i=cg_i,
                cg_active=cg_active, cg_on=torch.any(cg_active),
                status=_batched_status(s["active"], s["iters"],
-                                      s["cg_total"], cg_active))
+                                      s["cg_total"], cg_active,
+                                      out["coarse_fail"]))
     return out
 
 
@@ -768,8 +820,9 @@ def _batched_cg(s, o, robots, coarse=True, steps=solver._CG_BLOCK, **_):
     R = robots
     node_robot = _node_robot(gf, R)
     matvec = solver._make_matvec(gf, s["Ji"], s["Jj"], s["Jp"], w,
-                                 s["lam"][node_robot][:, None], s["diag_h"])
-    apply_prec = _batched_preconditioner(s, coarse)
+                                 s["lam"][node_robot][:, None], s["diag_h"],
+                                 solver._plans_of(o))
+    apply_prec = _batched_preconditioner(s, o, coarse, R)
     max_iters, tol = o["caps"][1], o["tols"][2]
     x, r, z, p, rz = s["x"], s["r"], s["z"], s["p"], s["rz"]
     cg_i, on = s["cg_i"], s["cg_active"]
@@ -793,7 +846,7 @@ def _batched_cg(s, o, robots, coarse=True, steps=solver._CG_BLOCK, **_):
     return {"x": x, "r": r, "z": z, "p": p, "rz": rz, "cg_i": cg_i,
             "cg_active": on, "cg_on": torch.any(on),
             "status": _batched_status(s["active"], s["iters"],
-                                      s["cg_total"], on)}
+                                      s["cg_total"], on, s["coarse_fail"])}
 
 
 def _batched_tail(s, o, robots, **_):
@@ -804,7 +857,7 @@ def _batched_tail(s, o, robots, **_):
     out["cg_total"] = s["cg_total"] + torch.where(
         s["active"], s["cg_i"], torch.zeros_like(s["cg_i"]))
     out["status"] = _batched_status(out["active"], out["iters"],
-                                    out["cg_total"])
+                                    out["cg_total"], None, s["coarse_fail"])
     return out
 
 
@@ -819,7 +872,7 @@ def _batched_pcg_lm(g: PoseGraphArrays, weights: torch.Tensor,
                     init_lambda: float = solver._LM_INIT_LAMBDA,
                     cg_tol: float = solver._CG_TOL,
                     rel_tol: float = solver._LM_REL_TOL, *,
-                    eager: bool = False):
+                    eager: bool = False, with_failures: bool = False):
     """``solver.lm_optimize`` on each of R stacked subgraphs of the PCG
     tier (``Np > solver._DENSE_SOLVE_MAX_NODES``) at once: every robot
     with its own CG and LM scalars and stops, frozen by a mask once it has
@@ -827,20 +880,24 @@ def _batched_pcg_lm(g: PoseGraphArrays, weights: torch.Tensor,
     alone. The programs (:data:`BATCHED_PCG_GRAPHS`) are driven as
     ``lm_optimize``'s PCG tier drives its own (``solver._run_pcg``: one
     host read per CG block and per LM iteration). Returns (poses ``[R,
-    Np, 4, 4]``, LM iterations ``[R]``, CG iterations ``[R]``)."""
+    Np, 4, 4]``, LM iterations ``[R]``, CG iterations ``[R]``), and with
+    ``with_failures`` the LM iterations whose coarse factorization failed
+    (an int, read with the last status)."""
     R, Np = g.poses.shape[:2]
     gf = _flatten(g)
     tols, caps = solver._scalar_operands(
         g.poses.device, g.poses.dtype, [init_lambda, rel_tol, cg_tol],
         [max_iters, cg_iters])
     operands = {n: getattr(gf, n) for n in solver._GRAPH_FIELDS}
-    operands.update(weights=weights.reshape(-1), tols=tols, caps=caps)
+    operands.update(weights=weights.reshape(-1), tols=tols, caps=caps,
+                    **solver._plan_operands(solver.segment_plans(gf, R)))
     with BATCHED_PCG_GRAPHS.solve(g.poses.device, operands, eager=eager,
                                   robots=R, coarse=solver._USE_COARSE,
                                   steps=solver._CG_BLOCK) as loop:
-        solver._run_pcg(loop)
+        status = solver._run_pcg(loop)
         poses, iters, cg = loop.take("poses", "iters", "cg_total")
-    return poses.reshape(R, Np, 4, 4), iters, cg
+    out = poses.reshape(R, Np, 4, 4), iters, cg
+    return out + (status[4],) if with_failures else out
 
 
 def _local_solve(g: PoseGraphArrays, weights: torch.Tensor, lm_iters: int,
@@ -850,14 +907,18 @@ def _local_solve(g: PoseGraphArrays, weights: torch.Tensor, lm_iters: int,
     dense tier, :func:`_batched_pcg_lm` above
     ``solver._DENSE_SOLVE_MAX_NODES`` nodes); with one (a rank's block), or
     ``in_turn`` (the plain version of the batching), ``solver.lm_optimize``
-    per robot. Returns (poses ``[n, Np, 4, 4]``, iterations ``[n]``)."""
+    per robot. Returns (poses ``[n, Np, 4, 4]``, iterations ``[n]``, the
+    LM iterations whose coarse factorization failed, an int read with the
+    solves' last statuses)."""
     n, Np = g.poses.shape[:2]
     if n > 1 and not in_turn:
         if Np <= solver._DENSE_SOLVE_MAX_NODES:
-            return _batched_lm(g, weights, max_iters=lm_iters)
-        return _batched_pcg_lm(g, weights, max_iters=lm_iters,
-                               cg_iters=cg_iters)[:2]
-    poses, iters = [], []
+            return _batched_lm(g, weights, max_iters=lm_iters) + (0,)
+        poses, iters, _, failed = _batched_pcg_lm(
+            g, weights, max_iters=lm_iters, cg_iters=cg_iters,
+            with_failures=True)
+        return poses, iters, failed
+    poses, iters, failed = [], [], 0
     for j in range(n):
         res = solver.lm_optimize(
             PoseGraphArrays(**{f.name: getattr(g, f.name)[j]
@@ -865,7 +926,9 @@ def _local_solve(g: PoseGraphArrays, weights: torch.Tensor, lm_iters: int,
             weights[j], max_iters=lm_iters, cg_iters=cg_iters)
         poses.append(res.poses)
         iters.append(res.iterations)
-    return torch.stack(poses), torch.tensor(iters, device=g.poses.device)
+        failed += res.coarse_failures
+    return (torch.stack(poses), torch.tensor(iters, device=g.poses.device),
+            failed)
 
 
 def _local_chi2(poses: torch.Tensor, g: PoseGraphArrays) -> torch.Tensor:
@@ -891,7 +954,9 @@ def _sweep_inputs(all_poses: torch.Tensor, local: PoseGraphArrays,
     ``me`` at their geodesic midpoints, the canonical separator TLS
     weights and the local chi2 weights. Returns (the owned robots' local
     problems ``[n, ...]``, their edge weights ``[n, Ne]``, the replicated
-    separator weights ``[S]``)."""
+    separator weights ``[S]``, the coarse alignment's failed
+    factorizations, a 0-d int64 tensor, 0 where ``coarse_on`` is
+    False)."""
     segments = int(sep.get("coarse_segments", 1))
     seg_len = int(sep.get("coarse_seg_len", 1 << 30))
     dev = local.poses.device
@@ -914,15 +979,19 @@ def _sweep_inputs(all_poses: torch.Tensor, local: PoseGraphArrays,
 
     _, chi2_pre = _sep_residuals(all_poses, sep)
     w_pre = _sep_weights(chi2_pre)
+    align_fail = torch.zeros((), dtype=torch.int64, device=dev)
     # coarse two-level accelerator (identical replicated computation for
     # every holder); bias-free, so it can run every sweep
     if coarse_iters > 0 and (isinstance(coarse_on, torch.Tensor)
                              or coarse_on):
-        aligned = _coarse_alignment(
+        aligned, align_fail = _coarse_alignment_counted(
             all_poses, sep, w_pre, sep.get("cross"), nb_robots, segments,
             seg_len, mu=mu, barc_sq=barc_sq, iters=coarse_iters)
-        all_poses = (torch.where(coarse_on, aligned, all_poses)
-                     if isinstance(coarse_on, torch.Tensor) else aligned)
+        if isinstance(coarse_on, torch.Tensor):
+            all_poses = torch.where(coarse_on, aligned, all_poses)
+            align_fail = align_fail * coarse_on.to(torch.int64)
+        else:
+            all_poses = aligned
     my_poses = all_poses[me]
 
     idx, target, info, valid = _separator_priors(me, all_poses, sep)
@@ -962,7 +1031,7 @@ def _sweep_inputs(all_poses: torch.Tensor, local: PoseGraphArrays,
     chi2_loc = _local_chi2(my_poses, g_local)
     weights = torch.where(g_local.robust > 0, _tls(chi2_loc, mu, barc_sq),
                           torch.ones_like(chi2_loc))
-    return g_local, weights, w_canon
+    return g_local, weights, w_canon, align_fail
 
 
 def _check_prior_tier(S: int, B: int) -> None:
@@ -977,7 +1046,8 @@ def _sweep(mesh: RobotMesh, local: PoseGraphArrays, sep: dict,
            in_turn: bool = False):
     """One sweep: (owned blocks, separators, mu, coarse_on) -> (new owned
     poses ``[n, Np, 4, 4]``, replicated separator TLS weights ``[S]``, LM
-    iterations ``[n]``).
+    iterations ``[n]``, failed factorizations [coarse alignment, local
+    coarse factors] ``[2]`` int64).
 
     Coarse segment-rigid alignment (replicated tiny GN over the separator
     graph + segment-crossing intra edges, :func:`_coarse_alignment`), then
@@ -986,12 +1056,13 @@ def _sweep(mesh: RobotMesh, local: PoseGraphArrays, sep: dict,
     """
     me = torch.tensor(mesh.owned, dtype=torch.int64,
                       device=local.poses.device)
-    g_local, weights, w_canon = _sweep_inputs(
+    g_local, weights, w_canon, align_fail = _sweep_inputs(
         mesh.all_gather(local.poses), local, sep, mu, coarse_on, me,
         nb_robots=mesh.size, barc_sq=barc_sq, coarse_iters=coarse_iters)
-    poses, iters = _local_solve(g_local, weights, lm_iters, cg_iters,
-                                in_turn)
-    return poses, w_canon, iters
+    poses, iters, factor_fail = _local_solve(g_local, weights, lm_iters,
+                                             cg_iters, in_turn)
+    return poses, w_canon, iters, torch.stack(
+        [align_fail, torch.full_like(align_fail, factor_fail)])
 
 
 def _adaptive_mu0(all_poses: torch.Tensor, poses: torch.Tensor,
@@ -1053,7 +1124,7 @@ def make_distributed_step(mesh: RobotMesh, lm_iters: int = 15,
     @highest_precision
     def step(local: PoseGraphArrays, sep: dict, mu,
              coarse: bool = True) -> PoseGraphArrays:
-        poses, _, _ = _sweep(mesh, local, sep, _f32(mu, mesh.device),
+        poses, _, _, _ = _sweep(mesh, local, sep, _f32(mu, mesh.device),
                              bool(coarse), lm_iters=lm_iters,
                              cg_iters=cg_iters, barc_sq=barc_sq)
         return dataclasses.replace(local, poses=poses)
@@ -1110,7 +1181,8 @@ def _solve(mesh: RobotMesh, local: PoseGraphArrays, sep: dict, *,
     ``StackedMesh`` whose separators hold the coarse metadata, else
     :func:`_solve_host`). Returns (poses of every robot, sweeps, final
     delta, separator weights, LM iterations of every owned robot summed
-    over the sweeps)."""
+    over the sweeps, failed factorizations [coarse alignment, local coarse
+    factors] ``[2]`` int64 summed over the sweeps)."""
     if route is None:
         route = ("steps" if isinstance(mesh, StackedMesh) and "cross" in sep
                  else "host")
@@ -1157,6 +1229,7 @@ def _solve_host(mesh: RobotMesh, local: PoseGraphArrays, sep: dict, *,
 
     sep_init, sep_run = _with_carry(1.0), _with_carry(0.0)
     lm_total = torch.zeros(len(mesh.owned), dtype=torch.int64, device=dev)
+    fails = torch.zeros(2, dtype=torch.int64, device=dev)
 
     # phase 0: ROBUST init sweeps at mu = 1: TLS weight 1 for edges with
     # chi2 below barc_sq/2, smoothly to 0 beyond 2*barc_sq, i.e. plausible
@@ -1166,9 +1239,10 @@ def _solve_host(mesh: RobotMesh, local: PoseGraphArrays, sep: dict, *,
     # post-init chi2 with a wide cap.
     poses = local.poses
     for _ in range(init_sweeps):
-        poses, _w, it = sweep(poses, sep_init, _f32(1.0, dev), True,
-                              lm_iters)
+        poses, _w, it, f = sweep(poses, sep_init, _f32(1.0, dev), True,
+                                 lm_iters)
         lm_total += it
+        fails += f
 
     if mu0 is None:
         mu = _adaptive_mu0(mesh.all_gather(poses), poses, local, sep,
@@ -1181,9 +1255,10 @@ def _solve_host(mesh: RobotMesh, local: PoseGraphArrays, sep: dict, *,
     delta = _f32(float("inf"), dev)
     while sweeps < max_sweeps:
         w_prev = w
-        new_poses, w, it = sweep(poses, sep_run, mu, sweeps < coarse_sweeps,
-                                 lm_iters)
+        new_poses, w, it, f = sweep(poses, sep_run, mu,
+                                    sweeps < coarse_sweeps, lm_iters)
         lm_total += it
+        fails += f
         # over every robot: a holder that stopped one sweep early would
         # deadlock the next all_gather
         delta = mesh.all_reduce_max(torch.max(torch.abs(new_poses - poses)))
@@ -1196,9 +1271,10 @@ def _solve_host(mesh: RobotMesh, local: PoseGraphArrays, sep: dict, *,
         if bool(done):
             break
     # final polish sweep at full LM budget and the converged mu
-    poses, w, it = sweep(poses, sep_run, mu, False, final_lm_iters)
+    poses, w, it, f = sweep(poses, sep_run, mu, False, final_lm_iters)
     lm_total += it
-    return mesh.all_gather(poses), sweeps, delta, w, lm_total
+    fails += f
+    return mesh.all_gather(poses), sweeps, delta, w, lm_total, fails
 
 
 # -- the whole solve as step programs -------------------------------------
@@ -1248,6 +1324,7 @@ def _local_of(o) -> PoseGraphArrays:
 
 def _sep_of(s, o, carry, segments, seg_len) -> dict:
     sep = {k: o[f"sep_{k}"] for k in _SEP_FIELDS}
+    sep["plans"] = {n: plan_from(o, f"cplan_{n}") for n in ("pair", "node")}
     if carry:
         sep.update({k: o[f"sep_{k}"] for k in _CARRY_FIELDS},
                    carry_on=s["carry_on"])
@@ -1267,6 +1344,7 @@ def _dist_init(s, o, robots, **_):
     zero = _full(x, 0, torch.int64)
     return {"blocks": x, "mu": _full(x, 1.0, torch.float32),
             "carry_on": _full(x, 1.0, torch.float32), "phase": zero,
+            "fails": torch.zeros(2, dtype=torch.int64, device=x.device),
             "sweeps": zero, "sweeping": o["caps"][0] > 0,
             "lm_cap": o["caps"][3],
             "lm_total": torch.zeros(robots, dtype=torch.int64,
@@ -1283,11 +1361,13 @@ def _dist_pre(s, o, robots, barc_sq, carry, segments, seg_len, **_):
     phase = s["phase"]
     coarse_on = (phase == 0) | ((phase == 1) & (s["sweeps"] < o["caps"][2]))
     me = torch.arange(robots, device=s["blocks"].device)
-    g, weights, w_canon = _sweep_inputs(
+    g, weights, w_canon, align_fail = _sweep_inputs(
         s["blocks"], _local_of(o), _sep_of(s, o, carry, segments, seg_len),
         s["mu"], coarse_on, me, nb_robots=robots, barc_sq=barc_sq)
     out = {f"local_{n}": getattr(g, n) for n in _LOCAL_STATE}
-    out.update(lm_weights=weights.reshape(-1), w_new=w_canon)
+    out.update(lm_weights=weights.reshape(-1), w_new=w_canon,
+               fails=s["fails"] + torch.stack(
+                   [align_fail, torch.zeros_like(align_fail)]))
     return out
 
 
@@ -1300,6 +1380,7 @@ def _in_sweep(fn, block=False):
         g = dataclasses.replace(_local_of(o), **{
             n: s[f"local_{n}"] for n in _LOCAL_STATE})
         view = {n: getattr(_flatten(g), n) for n in solver._GRAPH_FIELDS}
+        view.update({n: t for n, t in o.items() if n.startswith("plan_")})
         view.update(weights=s["lm_weights"], tols=o["tols"],
                     caps=torch.stack([s["lm_cap"], o["caps"][5]]))
         return fn(s, view, robots=robots, coarse=solver._USE_COARSE,
@@ -1320,7 +1401,10 @@ def _dist_post(s, o, robots, mu_step, **_):
     stable = torch.max(torch.abs(w - s["w"])) < 1e-3
     done = (binary | stable) & (delta < o["tols"][3])
     sweeps = torch.where(phase == 2, s["sweeps"], s["sweeps"] + 1)
+    factor_fail = s["coarse_fail"]
     return {"blocks": new, "lm_total": s["lm_total"] + s["iters"],
+            "fails": s["fails"] + torch.stack(
+                [torch.zeros_like(factor_fail), factor_fail]),
             "w": torch.where(init, s["w"], w),
             "delta": torch.where(run, delta, s["delta"]),
             "done": torch.where(run, done, s["done"]),
@@ -1399,6 +1483,15 @@ def _solve_steps(local: PoseGraphArrays, sep: dict, *, max_sweeps,
                      + (_CARRY_FIELDS if carry else ())})
     operands.update({f"cross_{k}": sep["cross"][k] for k in _CROSS_FIELDS})
     operands.update(tols=tols, caps=caps)
+    # the sums' orders: the local LM's, on the sweeps' flattened problems
+    # (their separator priors in the slots ``pre`` fills), and the coarse
+    # alignment's
+    operands.update(solver._plan_operands(solver.segment_plans(
+        _flatten(_sweep_layout(local, sep)), R)))
+    plans = _coarse_plans(sep, R, int(sep.get("coarse_segments", 1)),
+                          int(sep.get("coarse_seg_len", 1 << 30)))
+    for name, plan in plans.items():
+        operands.update(plan_operands(f"cplan_{name}", plan))
     with DIST_GRAPHS.solve(
             dev, operands, eager=eager, robots=R,
             segments=int(sep.get("coarse_segments", 1)),
@@ -1407,7 +1500,26 @@ def _solve_steps(local: PoseGraphArrays, sep: dict, *, max_sweeps,
             mu0_chi2_cap=float(mu0_chi2_cap), carry=carry,
             cg_steps=_SWEEP_CG_BLOCK) as loop:
         loop.run_plan(_solve_plan(Np > solver._DENSE_SOLVE_MAX_NODES))
-        return loop.take("blocks", "sweeps", "delta", "w", "lm_total")
+        return loop.take("blocks", "sweeps", "delta", "w", "lm_total",
+                         "fails")
+
+
+def _sweep_layout(local: PoseGraphArrays, sep: dict) -> PoseGraphArrays:
+    """``local`` with the prior slots a sweep fills (:func:`_sweep_inputs`:
+    the self-anchor, then each separator incident to the robot at its
+    pose) and their validity, which no pose changes: the index fields of
+    every sweep's local problems."""
+    R = local.poses.shape[0]
+    S = sep["valid"].shape[0]
+    _, incident, idx = _separator_slots(
+        torch.arange(R, device=local.poses.device), sep)
+    return dataclasses.replace(
+        local,
+        prior_idx=torch.cat([local.prior_idx[:, :1], idx,
+                             local.prior_idx[:, 1 + S:]], 1),
+        prior_valid=torch.cat([local.prior_valid[:, :1],
+                               incident.to(local.prior_valid.dtype),
+                               local.prior_valid[:, 1 + S:]], 1))
 
 
 class DistributedInfo:
@@ -1416,7 +1528,8 @@ class DistributedInfo:
     def __init__(self, sweeps_used: int, final_delta: float,
                  sep_weights: np.ndarray,
                  sep_weight_by_key: Optional[Dict] = None,
-                 lm_iterations: int = 0):
+                 lm_iterations: int = 0,
+                 coarse_failures: Optional[Dict] = None):
         self.sweeps_used = sweeps_used
         self.final_delta = final_delta
         self.sep_weights = sep_weights
@@ -1425,6 +1538,11 @@ class DistributedInfo:
         self.sep_weight_by_key = sep_weight_by_key or {}
         #: LM iterations of this process's robots, summed over the sweeps
         self.lm_iterations = lm_iterations
+        #: failed Cholesky factorizations over the solve: the coarse
+        #: alignment's (its Gauss-Newton iterations) and the local PCG
+        #: tier's coarse factors (LM iterations)
+        self.coarse_failures = coarse_failures or {"alignment": 0,
+                                                   "local_coarse": 0}
 
     def __repr__(self):
         return (f"DistributedInfo(sweeps_used={self.sweeps_used}, "
@@ -1488,16 +1606,18 @@ def distributed_optimize(problem: ShardedPoseGraph, mesh: RobotMesh,
             mu0 = 1e6
     else:
         init_sweeps = 2
-    poses, sweeps_used, delta, w, lm_total = _solve(
+    poses, sweeps_used, delta, w, lm_total, fails = _solve(
         mesh, local, sep, route=_route, eager=_eager, max_sweeps=sweeps,
         lm_iters=lm_iters, cg_iters=cg_iters, barc_sq=barc_sq, mu0=mu0,
         mu_step=mu_step, tol=tol, init_sweeps=init_sweeps)
     values = problem.values_from_arrays(poses)
     if return_info:
         w_np = w.cpu().numpy()
+        # one read for the LM count and the failure counts
+        counts = torch.cat([lm_total.sum().reshape(1), fails]).tolist()
         info = DistributedInfo(
             int(sweeps_used), float(delta), w_np,
             {k: float(w_np[i]) for i, k in enumerate(sep_keys)},
-            int(lm_total.sum()))
+            counts[0], {"alignment": counts[1], "local_coarse": counts[2]})
         return values, info
     return values

@@ -6,9 +6,10 @@ reference's GTSAM ``GncOptimizer<GncParams<LevenbergMarquardtParams>>`` at
 
 - residuals and exact analytic Jacobians batched over edges,
 - up to 512 padded nodes, the ``[6Np, 6Np]`` normal equations assembled
-  with ``index_put_`` / ``index_add_`` scatter-adds (the JAX package used
-  one-hot matmuls because TPU scatters serialize) and solved by dense
-  Cholesky,
+  by segment sums in an order fixed per problem (``ops.segment_sum``: the
+  JAX package used one-hot matmuls because TPU scatters serialize; the
+  card's atomic scatter-adds would change the order from run to run) and
+  solved by dense Cholesky,
 - above 512 nodes, PCG on the implicit Hessian (applied edge-wise, never
   formed), preconditioned by block-Jacobi plus a segment-rigid coarse
   correction,
@@ -30,11 +31,13 @@ loops stay host loops on a few reads per outer iteration.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
 from cslam_tpu_torch.ops import cholesky_solve, highest_precision, se3
+from cslam_tpu_torch.ops.segment_sum import (plan_from, plan_operands,
+                                             segment_plan, segment_sum)
 from cslam_tpu_torch.pgo.factor_graph import PoseGraphArrays
 from cslam_tpu_torch.utils.tier_graphs import StepGraphs, host_operands
 
@@ -108,34 +111,149 @@ def _linearize(poses: torch.Tensor, g: PoseGraphArrays):
 
 
 # ---------------------------------------------------------------------------
-# Normal equations (scatter-add assembly)
+# Normal equations (segment sums in a fixed order)
 # ---------------------------------------------------------------------------
+#
+# Every sum over edges runs in an order fixed once per problem
+# (``ops.segment_sum``): each destination adds its sources in the order of
+# the concatenated source blocks, which is the order the CPU's
+# ``index_add_`` / ``index_put_(accumulate=True)`` calls added them in, so
+# CPU results keep their bits and the card's runs repeat. The plans of a
+# graph (:func:`segment_plans`) are built from its index fields at their
+# first use (cached on the arrays, shared with the GNC's pose-replaced
+# copies) and enter the step programs as operands ``plan_<name>_*``:
+#
+# - ``node``: ``[edge_i; edge_j; prior_idx]`` into nodes (``D``, ``grad``,
+#   the PCG matvec);
+# - ``pair`` (dense tier): the off-diagonal blocks, ``(i, j)`` then
+#   ``(j, i)`` of every edge, into ``[Np * Np]`` (robot-major for a
+#   flattened batch of robots: ``(r, i, j)``);
+# - ``seg``, ``seg_pair`` (PCG tier): nodes into their coarse segments,
+#   and the Galerkin blocks ``(si, si), (si, sj), (sj, si), (sj, sj)`` of
+#   every edge, then ``(sp, sp)`` of every prior, into ``[S * S]`` per
+#   robot.
+#
+# Padded edges and priors are left out of every plan (their terms are
+# exact zeros).
+
+_PLAN_NAMES = ("node", "pair", "seg", "seg_pair")
 
 
-def _hessian_blocks(g, Ji, Jj, Jp, weights):
+def _coarse_segments(N: int, robots: int, device) -> torch.Tensor:
+    """Each node's coarse segment in ``[robots * S]``: ``_COARSE_SEG``
+    consecutive nodes of its robot's ``Np = N / robots``, the rest in the
+    last of the robot's ``S = max(1, Np // _COARSE_SEG)``."""
+    Np = N // robots
+    S = max(1, Np // _COARSE_SEG)
+    n = torch.arange(N, device=device)
+    return (n // Np) * S + torch.clamp((n % Np) // _COARSE_SEG, max=S - 1)
+
+
+def _build_plan(g: PoseGraphArrays, name: str, robots: int):
+    N = g.poses.shape[0]
+    Np = N // robots
+    ei, ej, pi = g.edge_i, g.edge_j, g.prior_idx
+    ev, pv = g.edge_valid > 0, g.prior_valid > 0
+    if name == "node":
+        return segment_plan(torch.cat([ei, ej, pi]),
+                            torch.cat([ev, ev, pv]), N)
+    if name == "pair":
+        return segment_plan(torch.cat([ei * Np + ej % Np,
+                                       ej * Np + ei % Np]),
+                            torch.cat([ev, ev]), N * Np, compact=True)
+    S = max(1, Np // _COARSE_SEG)
+    seg = _coarse_segments(N, robots, g.poses.device)
+    if name == "seg":
+        return segment_plan(seg, g.node_valid > 0, robots * S)
+    si, sj, sp = seg[ei], seg[ej], seg[pi]
+    return segment_plan(
+        torch.cat([si * S + si % S, si * S + sj % S, sj * S + si % S,
+                   sj * S + sj % S, sp * S + sp % S]),
+        torch.cat([ev, ev, ev, ev, pv]), robots * S * S, compact=True)
+
+
+def segment_plans(g: PoseGraphArrays, robots: int = 1,
+                  names=None) -> Dict:
+    """The segment plans ``names`` of ``g``'s normal-equation sums (by
+    default its tier's: ``node``, and ``pair`` up to
+    ``_DENSE_SOLVE_MAX_NODES`` nodes per robot, ``seg`` and ``seg_pair``
+    above), for ``robots`` robots flattened into one graph
+    (``pgo.distributed``'s batched tiers). Built from the index fields
+    once and cached on ``g`` (outside any capture)."""
+    if names is None:
+        Np = g.poses.shape[0] // robots
+        names = ("node", "pair") if Np <= _DENSE_SOLVE_MAX_NODES else \
+            ("node", "seg", "seg_pair")
+    cache = g.__dict__.setdefault("_segment_plans", {})
+    for name in names:
+        if (name, robots) not in cache:
+            cache[name, robots] = _build_plan(g, name, robots)
+    return {name: cache[name, robots] for name in names}
+
+
+def _plan_operands(plans: Dict) -> Dict[str, torch.Tensor]:
+    out = {}
+    for name, plan in plans.items():
+        out.update(plan_operands(f"plan_{name}", plan))
+    return out
+
+
+def _plan(plans: Optional[Dict], g: PoseGraphArrays, name: str,
+          robots: int = 1):
+    """``plans[name]`` where the caller passed it, else ``g``'s own (for
+    ``robots`` robots flattened into ``g``)."""
+    if plans is not None and name in plans:
+        return plans[name]
+    return segment_plans(g, robots, names=(name,))[name]
+
+
+def _plans_of(o) -> Dict:
+    """The plans a step program's operands hold (:func:`_plan_operands`)."""
+    return {name: plan for name in _PLAN_NAMES
+            if (plan := plan_from(o, f"plan_{name}")) is not None}
+
+
+def _node_sum(parts, plan, width):
+    """Per-node sums of the concatenated ``parts`` (``[edge_i; edge_j;
+    prior_idx]`` rows), ``[N, *width]``."""
+    src = torch.cat([p.reshape(p.shape[0], -1) for p in parts])
+    return segment_sum(src, plan).reshape(-1, *width)
+
+
+def _hessian_blocks(g, Ji, Jj, Jp, weights, plans: Optional[Dict] = None):
     """Block-diagonal of H = J^T W J: ``[Np, 6, 6]``."""
-    Np = g.poses.shape[0]
     w = (weights * g.edge_valid)[:, None, None]
-    D = torch.zeros((Np, 6, 6), dtype=Ji.dtype, device=Ji.device)
-    D.index_add_(0, g.edge_i, Ji.transpose(1, 2) @ Ji * w)
-    D.index_add_(0, g.edge_j, Jj.transpose(1, 2) @ Jj * w)
-    D.index_add_(0, g.prior_idx, Jp.transpose(1, 2) @ Jp)
+    D = _node_sum((Ji.transpose(1, 2) @ Ji * w, Jj.transpose(1, 2) @ Jj * w,
+                   Jp.transpose(1, 2) @ Jp), _plan(plans, g, "node"), (6, 6))
     # identity on padded nodes keeps them inert and invertible
     return D + ((1.0 - g.node_valid)[:, None, None]
                 * torch.eye(6, dtype=Ji.dtype, device=Ji.device))
 
 
-def _assemble_grad(g, Ji, Jj, Jp, rw, rp):
+def _assemble_grad(g, Ji, Jj, Jp, rw, rp, plans: Optional[Dict] = None):
     """grad = J^T W r: ``[Np, 6]``."""
-    Np = g.poses.shape[0]
-    grad = torch.zeros((Np, 6), dtype=Ji.dtype, device=Ji.device)
-    grad.index_add_(0, g.edge_i, torch.einsum("eij,ei->ej", Ji, rw))
-    grad.index_add_(0, g.edge_j, torch.einsum("eij,ei->ej", Jj, rw))
-    grad.index_add_(0, g.prior_idx, torch.einsum("bij,bi->bj", Jp, rp))
+    grad = _node_sum((torch.einsum("eij,ei->ej", Ji, rw),
+                      torch.einsum("eij,ei->ej", Jj, rw),
+                      torch.einsum("bij,bi->bj", Jp, rp)),
+                     _plan(plans, g, "node"), (6,))
     return grad * g.node_valid[:, None]
 
 
-def _dense_normal_solve(g, Ji, Jj, weights, lam, diag_h, grad, D_blocks):
+def _off_diagonal_blocks(g, Ji, Jj, weights, plans, robots: int = 1):
+    """The off-diagonal blocks of H, ``Ji^T W Jj`` at (i, j) and its
+    transpose at (j, i): ``[N, Np, 6, 6]`` for ``robots`` robots of ``Np
+    = N / robots`` nodes flattened into ``g`` (row ``r * Np + i``, column
+    ``j`` of robot ``r``)."""
+    N = g.poses.shape[0]
+    Np = N // robots
+    JiT_Jj = Ji.transpose(1, 2) @ Jj * (weights * g.edge_valid)[:, None, None]
+    src = torch.cat([JiT_Jj, JiT_Jj.transpose(1, 2)]).reshape(-1, 36)
+    return segment_sum(src, _plan(plans, g, "pair", robots),
+                       rows=N * Np).reshape(N, Np, 6, 6)
+
+
+def _dense_normal_solve(g, Ji, Jj, weights, lam, diag_h, grad, D_blocks,
+                        plans: Optional[Dict] = None):
     """Solve (H + lam*diag(H)) delta = -grad by dense Cholesky.
 
     Off-diagonal blocks ``Ji^T W Jj`` land at (i, j) and their transposes at
@@ -144,12 +262,7 @@ def _dense_normal_solve(g, Ji, Jj, weights, lam, diag_h, grad, D_blocks):
     """
     Np = g.poses.shape[0]
     dtype, dev = Ji.dtype, Ji.device
-    w3 = (weights * g.edge_valid)[:, None, None]
-    JiT_Jj = Ji.transpose(1, 2) @ Jj * w3
-    H = torch.zeros((Np, Np, 6, 6), dtype=dtype, device=dev)
-    H.index_put_((g.edge_i, g.edge_j), JiT_Jj, accumulate=True)
-    H.index_put_((g.edge_j, g.edge_i), JiT_Jj.transpose(1, 2),
-                 accumulate=True)
+    H = _off_diagonal_blocks(g, Ji, Jj, weights, plans)
     eye6 = torch.eye(6, dtype=dtype, device=dev)
     nodes = torch.arange(Np, device=dev)
     H[nodes, nodes] += D_blocks + lam * diag_h[:, :, None] * eye6[None]
@@ -163,19 +276,20 @@ def _dense_normal_solve(g, Ji, Jj, weights, lam, diag_h, grad, D_blocks):
 # ---------------------------------------------------------------------------
 
 
-def _make_matvec(g, Ji, Jj, Jp, weights, lam, diag_h):
-    """x -> (H + lam*diag(H)) x with H applied edge-wise (never formed)."""
+def _make_matvec(g, Ji, Jj, Jp, weights, lam, diag_h,
+                 plans: Optional[Dict] = None):
+    """x -> (H + lam*diag(H)) x with H applied edge-wise (never formed):
+    one segment sum per product."""
     w = (weights * g.edge_valid)[:, None]
-    Np = g.poses.shape[0]
+    node = _plan(plans, g, "node")
 
     def matvec(x):
         aw = (torch.einsum("eij,ej->ei", Ji, x[g.edge_i])
               + torch.einsum("eij,ej->ei", Jj, x[g.edge_j])) * w
-        y = torch.zeros((Np, 6), dtype=x.dtype, device=x.device)
-        y.index_add_(0, g.edge_i, torch.einsum("eij,ei->ej", Ji, aw))
-        y.index_add_(0, g.edge_j, torch.einsum("eij,ei->ej", Jj, aw))
         ap = torch.einsum("bij,bj->bi", Jp, x[g.prior_idx])
-        y.index_add_(0, g.prior_idx, torch.einsum("bij,bi->bj", Jp, ap))
+        y = _node_sum((torch.einsum("eij,ei->ej", Ji, aw),
+                       torch.einsum("eij,ei->ej", Jj, aw),
+                       torch.einsum("bij,bi->bj", Jp, ap)), node, (6,))
         y = y + lam * diag_h * x
         # padded nodes stay at identity so PCG stays well-posed
         return (y * g.node_valid[:, None]
@@ -184,7 +298,8 @@ def _make_matvec(g, Ji, Jj, Jp, weights, lam, diag_h):
     return matvec
 
 
-def _coarse_factor(g, poses, Ji, Jj, Jp, weights, lam, diag_h):
+def _coarse_factor(g, poses, Ji, Jj, Jp, weights, lam, diag_h,
+                   plans: Optional[Dict] = None):
     """Two-level (segment-rigid) coarse correction for the PCG tier.
 
     Block-Jacobi alone moves long-wavelength error one hop per CG
@@ -197,32 +312,23 @@ def _coarse_factor(g, poses, Ji, Jj, Jp, weights, lam, diag_h):
     edges and priors. Applied additively with block-Jacobi: ``z =
     M_bj^-1 r + P H_c^-1 P^T r``.
 
-    ``H_c`` is summed block by block (``[S, S, 6, 6]``, ``index_put_``)
-    where the JAX package forms the coarse residual Jacobian with one-hot
-    matmuls. Returns ``(seg, A, chol)``: each node's segment, ``P`` and
-    the Cholesky factor of ``H_c`` (NaN where it failed), the operands of
-    :func:`_coarse_apply`.
+    ``H_c`` is summed block by block (``[S, S, 6, 6]``, the ``seg_pair``
+    and ``seg`` plans) where the JAX package forms the coarse residual
+    Jacobian with one-hot matmuls. Returns ``(seg, A, chol, failed)``:
+    each node's segment, ``P``, the Cholesky factor of ``H_c`` (NaN where
+    it failed) and whether it failed (a 0-d bool), the first three the
+    operands of :func:`_coarse_apply`.
     """
     Np = g.poses.shape[0]
     S = max(1, Np // _COARSE_SEG)
     dtype, dev = Ji.dtype, Ji.device
-    seg = torch.clamp(torch.arange(Np, device=dev) // _COARSE_SEG, max=S - 1)
+    seg = _coarse_segments(Np, 1, dev)
     A = se3.adjoint(se3.inverse(poses)) * g.node_valid[:, None, None]
-    si, sj, sp = seg[g.edge_i], seg[g.edge_j], seg[g.prior_idx]
-    Gi = Ji @ A[g.edge_i]
-    Gj = Jj @ A[g.edge_j]
-    w = (weights * g.edge_valid)[:, None, None]
-    Gp = Jp @ A[g.prior_idx]
-    Hc = torch.zeros((S, S, 6, 6), dtype=dtype, device=dev)
-    for a, Ga in ((si, Gi), (sj, Gj)):
-        for b, Gb in ((si, Gi), (sj, Gj)):
-            Hc.index_put_((a, b), Ga.transpose(1, 2) @ Gb * w,
-                          accumulate=True)
-    Hc.index_put_((sp, sp), Gp.transpose(1, 2) @ Gp, accumulate=True)
-    # damping P^T (lam diag H) P lands on the block diagonal
-    T = torch.einsum("nai,na,naj->nij", A, lam * diag_h, A)
-    Dc = torch.zeros((S, 6, 6), dtype=dtype, device=dev)
-    Dc.index_add_(0, seg, T)
+    Hc, T = _galerkin_blocks(g, A, Ji, Jj, Jp, weights, lam * diag_h,
+                             plans, S * S)
+    Dc = segment_sum(T.reshape(Np, 36), _plan(plans, g, "seg")).reshape(
+        S, 6, 6)
+    Hc = Hc.reshape(S, S, 6, 6)
     segs = torch.arange(S, device=dev)
     Hc[segs, segs] += Dc
     Hc = Hc.permute(0, 2, 1, 3).reshape(S * 6, S * 6)
@@ -233,14 +339,32 @@ def _coarse_factor(g, poses, Ji, Jj, Jp, weights, lam, diag_h):
     chol, info = torch.linalg.cholesky_ex(Hc)
     # NaN on a failed factorization, as cho_factor gives, without a read
     chol = torch.where(info == 0, chol, torch.full_like(chol, float("nan")))
-    return seg, A, chol
+    return seg, A, chol, info != 0
 
 
-def _coarse_apply(seg, A, chol, r):
-    """``P H_c^-1 P^T r`` from :func:`_coarse_factor`'s operands."""
+def _galerkin_blocks(g, A, Ji, Jj, Jp, weights, damping, plans, rows,
+                     robots: int = 1):
+    """The coarse operator's edge and prior blocks, ``[rows, 36]`` (the
+    ``seg_pair`` plan's ``S * S`` blocks per robot), and each node's
+    damping block ``T = A^T diag(damping) A``, ``[N, 6, 6]``."""
+    Gi = Ji @ A[g.edge_i]
+    Gj = Jj @ A[g.edge_j]
+    w = (weights * g.edge_valid)[:, None, None]
+    Gp = Jp @ A[g.prior_idx]
+    src = torch.cat([Ga.transpose(1, 2) @ Gb * w for Ga in (Gi, Gj)
+                     for Gb in (Gi, Gj)] + [Gp.transpose(1, 2) @ Gp])
+    Hc = segment_sum(src.reshape(-1, 36),
+                     _plan(plans, g, "seg_pair", robots), rows=rows)
+    # damping P^T (lam diag H) P lands on the block diagonal
+    T = torch.einsum("nai,na,naj->nij", A, damping, A)
+    return Hc, T
+
+
+def _coarse_apply(seg, A, chol, r, plan):
+    """``P H_c^-1 P^T r`` from :func:`_coarse_factor`'s operands and the
+    ``seg`` plan."""
     S = chol.shape[0] // 6
-    c = torch.zeros((S, 6), dtype=r.dtype, device=r.device)
-    c.index_add_(0, seg, torch.einsum("nba,nb->na", A, r))
+    c = segment_sum(torch.einsum("nba,nb->na", A, r), plan)
     y = torch.cholesky_solve(c.reshape(S * 6, 1), chol).reshape(S, 6)
     return torch.einsum("nab,nb->na", A, y[seg])
 
@@ -248,8 +372,10 @@ def _coarse_apply(seg, A, chol, r):
 def _coarse_correction(g, poses, Ji, Jj, Jp, weights, lam, diag_h):
     """:func:`_coarse_factor` as ``apply(r) -> z_coarse``, ``H_c``
     factored once."""
-    factor = _coarse_factor(g, poses, Ji, Jj, Jp, weights, lam, diag_h)
-    return lambda r: _coarse_apply(*factor, r)
+    seg, A, chol, _ = _coarse_factor(g, poses, Ji, Jj, Jp, weights, lam,
+                                     diag_h)
+    plan = _plan(None, g, "seg")
+    return lambda r: _coarse_apply(seg, A, chol, r, plan)
 
 
 def _preconditioner(M_inv_blocks, coarse_apply=None):
@@ -342,11 +468,13 @@ def _graph_of(o) -> PoseGraphArrays:
     return PoseGraphArrays(**{n: o[n] for n in _GRAPH_FIELDS})
 
 
-def _status(done, it, cg_total, cg_active) -> torch.Tensor:
+def _status(done, it, cg_total, cg_active, coarse_fail=None) -> torch.Tensor:
     """The host's one read: [done, LM iterations, CG iterations,
-    cg_active] as int64."""
+    cg_active, failed coarse factorizations] as int64."""
     return torch.stack([done.to(torch.int64), it, cg_total,
-                        cg_active.to(torch.int64)])
+                        cg_active.to(torch.int64),
+                        torch.zeros_like(it) if coarse_fail is None
+                        else coarse_fail])
 
 
 def _lm_init(s, o, **_):
@@ -355,17 +483,18 @@ def _lm_init(s, o, **_):
     done = o["caps"][0] <= 0
     return {"poses": g.poses, "cost": cost(g.poses, g, w),
             "lam": o["tols"][0], "it": zero, "done": done,
-            "cg_total": zero,
+            "cg_total": zero, "coarse_fail": zero,
             "status": _status(done, zero, zero, torch.zeros_like(done))}
 
 
 def _linearized(s, o):
     """Residuals, Jacobians, gradient and Hessian block diagonal at the
     state's poses."""
-    g, w = _graph_of(o), o["weights"]
+    g, w, plans = _graph_of(o), o["weights"], _plans_of(o)
     r, Ji, Jj, rp, Jp = _linearize(s["poses"], g)
-    grad = _assemble_grad(g, Ji, Jj, Jp, r * (w * g.edge_valid)[:, None], rp)
-    D = _hessian_blocks(g, Ji, Jj, Jp, w)
+    grad = _assemble_grad(g, Ji, Jj, Jp, r * (w * g.edge_valid)[:, None], rp,
+                          plans)
+    D = _hessian_blocks(g, Ji, Jj, Jp, w, plans)
     diag_h = torch.clamp(torch.diagonal(D, dim1=1, dim2=2), min=1e-8)
     return g, w, Ji, Jj, Jp, grad, D, diag_h
 
@@ -402,7 +531,8 @@ def _lm_dense_step(s, o, steps=1, **_):
     s = dict(s)
     for _ in range(steps):
         g, w, Ji, Jj, Jp, grad, D, diag_h = _linearized(s, o)
-        delta = _dense_normal_solve(g, Ji, Jj, w, s["lam"], diag_h, grad, D)
+        delta = _dense_normal_solve(g, Ji, Jj, w, s["lam"], diag_h, grad, D,
+                                    _plans_of(o))
         s.update(_lm_update(s, o, delta))
     return {"poses": s["poses"], "cost": s["cost"], "lam": s["lam"],
             "it": s["it"], "done": s["done"],
@@ -413,28 +543,33 @@ def _lm_dense_step(s, o, steps=1, **_):
 def _lm_head(s, o, coarse=True, **_):
     """The PCG tier's LM iteration up to its solve: linearization,
     block-Jacobi inverses (``inv_ex``: no error read; the damped blocks are
-    positive definite), the coarse factor, and PCG's initial state for
-    ``(H + lam diag H) delta = -grad`` (none to run once ``done``)."""
+    positive definite), the coarse factor (a failed one counted in
+    ``coarse_fail``), and PCG's initial state for ``(H + lam diag H) delta
+    = -grad`` (none to run once ``done``)."""
     g, w, Ji, Jj, Jp, grad, D, diag_h = _linearized(s, o)
     lam = s["lam"]
     M_inv = torch.linalg.inv_ex(
         D + lam * diag_h[:, None] * torch.eye(6, dtype=D.dtype,
                                               device=D.device)[None])[0]
-    out = {"Ji": Ji, "Jj": Jj, "Jp": Jp, "diag_h": diag_h, "M_inv": M_inv}
+    out = {"Ji": Ji, "Jj": Jj, "Jp": Jp, "diag_h": diag_h, "M_inv": M_inv,
+           "coarse_fail": s["coarse_fail"]}
     if coarse:
-        out["seg"], out["A"], out["chol"] = _coarse_factor(
-            g, s["poses"], Ji, Jj, Jp, w, lam, diag_h)
-    out.update(_pcg_start(-grad, _cg_preconditioner(out, coarse),
+        out["seg"], out["A"], out["chol"], failed = _coarse_factor(
+            g, s["poses"], Ji, Jj, Jp, w, lam, diag_h, _plans_of(o))
+        out["coarse_fail"] = s["coarse_fail"] + (
+            failed & ~s["done"]).to(torch.int64)
+    out.update(_pcg_start(-grad, _cg_preconditioner(out, o, coarse),
                           o["caps"][1], o["tols"][1]))
     out["cg_active"] = out["cg_active"] & ~s["done"]
     out["status"] = _status(s["done"], s["it"], s["cg_total"],
-                            out["cg_active"])
+                            out["cg_active"], out["coarse_fail"])
     return out
 
 
-def _cg_preconditioner(s, coarse):
+def _cg_preconditioner(s, o, coarse):
+    plan = _plan(_plans_of(o), _graph_of(o), "seg") if coarse else None
     return _preconditioner(s["M_inv"], (lambda r: _coarse_apply(
-        s["seg"], s["A"], s["chol"], r)) if coarse else None)
+        s["seg"], s["A"], s["chol"], r, plan)) if coarse else None)
 
 
 def _cg_block(s, o, coarse=True, steps=_CG_BLOCK, **_):
@@ -442,15 +577,15 @@ def _cg_block(s, o, coarse=True, steps=_CG_BLOCK, **_):
     implicit Hessian of :func:`_lm_head`'s linearization."""
     g, w = _graph_of(o), o["weights"]
     matvec = _make_matvec(g, s["Ji"], s["Jj"], s["Jp"], w, s["lam"],
-                          s["diag_h"])
-    apply_prec = _cg_preconditioner(s, coarse)
+                          s["diag_h"], _plans_of(o))
+    apply_prec = _cg_preconditioner(s, o, coarse)
     s = dict(s)
     for _ in range(steps):
         out = _cg_iteration(s, matvec, apply_prec, o["caps"][1],
                             o["tols"][1])
         s.update(out)
     out["status"] = _status(s["done"], s["it"], s["cg_total"],
-                            s["cg_active"])
+                            s["cg_active"], s["coarse_fail"])
     return out
 
 
@@ -461,7 +596,7 @@ def _lm_tail(s, o, **_):
     out["cg_total"] = s["cg_total"] + torch.where(
         s["done"], torch.zeros_like(s["cg_i"]), s["cg_i"])
     out["status"] = _status(out["done"], out["it"], out["cg_total"],
-                            torch.zeros_like(out["done"]))
+                            torch.zeros_like(out["done"]), s["coarse_fail"])
     return out
 
 
@@ -531,7 +666,8 @@ def _lm_operands(g: PoseGraphArrays, weights: torch.Tensor, max_iters,
                                   [init_lambda, cg_tol, rel_tol],
                                   [max_iters, cg_iters])
     operands = {n: getattr(g, n) for n in _GRAPH_FIELDS}
-    operands.update(weights=weights, tols=tols, caps=caps)
+    operands.update(weights=weights, tols=tols, caps=caps,
+                    **_plan_operands(segment_plans(g)))
     return operands
 
 
@@ -540,6 +676,8 @@ class LMResult(NamedTuple):
     final_cost: torch.Tensor
     iterations: int
     cg_iterations: int = 0
+    #: LM iterations whose coarse factorization failed (PCG tier)
+    coarse_failures: int = 0
 
 
 @highest_precision
@@ -572,7 +710,7 @@ def lm_optimize(g: PoseGraphArrays, weights: torch.Tensor,
                               coarse=_USE_COARSE, steps=_CG_BLOCK) as loop:
             status = _run_pcg(loop)
             poses, final = loop.take("poses", "cost")
-    return LMResult(poses, final, status[1], status[2])
+    return LMResult(poses, final, status[1], status[2], status[4])
 
 
 # ---------------------------------------------------------------------------
@@ -604,7 +742,11 @@ class GncResult(NamedTuple):
 
 
 def _replace_poses(g: PoseGraphArrays, poses: torch.Tensor):
-    return dataclasses.replace(g, poses=poses)
+    """``g`` at ``poses``, sharing its segment plans (the index fields are
+    the same)."""
+    out = dataclasses.replace(g, poses=poses)
+    out._segment_plans = g.__dict__.setdefault("_segment_plans", {})
+    return out
 
 
 @highest_precision

@@ -207,11 +207,11 @@ def run_nodes(nodes, bus, clock, steps, intake, gt, drifted, device,
     both benches print (keyframes, steady wall, kf/s, real-time factor,
     loops, ATE of robot 0, the span table) plus the port's counters:
     CUDA graph captures after the warmup, verification pairs and ICP-gate
-    passes, K1, E1, E2 and WHILE-node launches, ``mac.fw_dispatch`` and
-    ``pgo.optimize`` seconds."""
+    passes, K1, E1, E2, WHILE-node and segment-sum launches,
+    ``mac.fw_dispatch`` and ``pgo.optimize`` seconds."""
     import torch
 
-    from cslam_tpu_torch.ops import nns, small_linalg
+    from cslam_tpu_torch.ops import nns, segment_sum, small_linalg
     from cslam_tpu_torch.selection import mac
     from cslam_tpu_torch.utils import profiling
     cuda = torch.device(device).type == "cuda"
@@ -221,6 +221,7 @@ def run_nodes(nodes, bus, clock, steps, intake, gt, drifted, device,
     profiling.reset_spans()
     nns.launches = 0
     small_linalg.reset_launches()
+    segment_sum.reset_launches()
     t0 = time.perf_counter()
     with dump_pgo(dump_dir):
         for i in range(steps):
@@ -243,6 +244,7 @@ def run_nodes(nodes, bus, clock, steps, intake, gt, drifted, device,
     launches = nns.launches
     small = (small_linalg.device_launch_counts(device) if cuda
              else {"eigh": 0, "svd": 0})
+    sums = segment_sum.device_launch_count(device) if cuda else 0
     graphs = graph_delta(before)
     be0 = nodes[0][3]
     keyframes = sum(n[1].nb_local_keyframes for n in nodes)
@@ -275,6 +277,7 @@ def run_nodes(nodes, bus, clock, steps, intake, gt, drifted, device,
         "icp_gate_pass_rate": passes / pairs if pairs else None,
         "k1_launches": launches,
         "small_linalg_launches": small,
+        "segment_sum_launches": sums,
         "while_launches": (mac.WOODBURY_FW_GRAPHS.by_program["lobpcg"]
                            ["replays"] - stages_before),
         "mac_fw_dispatch_s": spans.get("mac.fw_dispatch", {}).get(

@@ -44,7 +44,7 @@ def test_vpr_models_entry_and_kernels_import_without_jax():
         "for name in ('models', 'models.preprocess', 'models.backbones',\n"
         "             'models.golden', 'models.convert', 'models.cosplace',\n"
         "             'models.pca', 'models.netvlad', 'entry', 'convert',\n"
-        "             'ops.nns', 'ops.small_linalg'):\n"
+        "             'ops.nns', 'ops.small_linalg', 'ops.segment_sum'):\n"
         "    importlib.import_module('cslam_tpu_torch.' + name)\n"
         "from cslam_tpu_torch.ops import nns\n"
         "print(nns.KERNEL_K, sorted(nns.SOURCES))\n")
@@ -52,7 +52,8 @@ def test_vpr_models_entry_and_kernels_import_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.split() == ["10", "['bank_scan',", "'graph_while',",
-                                  "'small_eigh',", "'tile_scan']"]
+                                  "'segment_sum',", "'small_eigh',",
+                                  "'tile_scan']"]
 
 
 def test_lidar_modules_import_without_jax():
